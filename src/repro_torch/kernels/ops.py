@@ -1,0 +1,86 @@
+"""Public kernel entry points and the paged pool's int8 and page helpers.
+
+Counterpart of ``repro.kernels.ops`` for this slice: the ragged paged
+attention entry point, the symmetric int8 KV quantization of the serving
+pools (one float32 scale per pool entry per KV head, absmax over the head
+dim), the quantize-on-write scatter, and the copy-on-write page copy.
+
+The pools are updated IN PLACE (``kv_scatter_quantized``, ``copy_pages``):
+that replaces JAX's buffer donation, so a pool keeps its ``data_ptr()`` for
+the engine's whole life.  Where JAX scatters with ``mode="drop"`` (the
+sentinel page ``n_pages`` marks a write that must not land), the writes
+here are masked, because torch indexing raises on an out-of-range index.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ragged_paged_flash as _rpf
+
+
+def ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
+    """Ragged-pack serving attention over a block-table-paged KV pool.
+    q: (T,kvH,G,hd); slot/lens: (T,) int32; kp/vp: (n_pages,page,kvH,hd);
+    ptab: (B,pps) int32 -> (T,kvH,G,hd).  int8 pools pass their scale pools
+    ``ks``/``vs`` ((n_pages,page,kvH) float32).  CUDA tensors launch the
+    hand-written kernel (``kernels/csrc/ragged_paged_flash.cu``), CPU
+    tensors run its plain PyTorch version."""
+    return _rpf.ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=ks, vs=vs)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV quantization (paged serving pools)
+
+
+def quantize_kv(x: torch.Tensor):
+    """Symmetric int8 quantization of KV rows: one scale per (.., kvH) row.
+
+    x: (..., kvH, hd) -> (int8 rows, float32 scales (..., kvH)).
+    scale = absmax/127 (clamped away from zero); values round half to even
+    (``torch.round``, like ``jnp.round``) into [-127, 127]."""
+    xf = x.float()
+    s = torch.amax(torch.abs(xf), dim=-1) / 127.0
+    s = torch.clamp_min(s, 1e-12)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), s
+
+
+def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype=torch.float32):
+    """Inverse of ``quantize_kv``: q (..., kvH, hd) int8, s (..., kvH)."""
+    return (q.float() * s[..., None].float()).to(dtype)
+
+
+def live_writes(page: torch.Tensor, n_pages: int) -> torch.Tensor:
+    """Mask of scatter targets that exist: JAX drops writes to page ids
+    outside [0, n_pages) (the sentinel ``n_pages`` above all)."""
+    return (page >= 0) & (page < n_pages)
+
+
+def kv_scatter_quantized(pool, scales, rows, page, off):
+    """Fused quantize-on-write KV scatter for int8 paged pools: quantizes
+    ``rows`` ((T, kvH, hd)) and writes values into ``pool[page, off]`` and
+    scales into ``scales[page, off]``, in place.  Sentinel pages drop both
+    writes.  Returns (pool, scales), the same tensors."""
+    q, s = quantize_kv(rows)
+    m = live_writes(page, pool.shape[0])
+    pool[page[m], off[m]] = q[m]
+    scales[page[m], off[m]] = s[m]
+    return pool, scales
+
+
+def copy_pages(pool, src, dst, axis=None):
+    """Copy-on-write page copy, in place: ``pool[..., dst[i], ...] =
+    pool[..., src[i], ...]`` for each pair, IN ORDER.
+
+    pool: (..., n_pages, page, kvH, hd) (``axis=None`` means ``ndim - 4``)
+    or a (..., n_pages, page, kvH) scale pool (``axis = ndim - 3``); a
+    leading layer axis rides along.  src/dst: (K,) ints; indices clamp to
+    ``n_pages - 1``, so sentinel pairs become a self-copy of the last page,
+    which is a no-op and is skipped."""
+    ax = pool.ndim - 4 if axis is None else axis
+    n = pool.shape[ax]
+    for s, d in zip(torch.as_tensor(src).tolist(), torch.as_tensor(dst).tolist()):
+        s, d = min(s, n - 1), min(d, n - 1)
+        if s != d:
+            pool.select(ax, d).copy_(pool.select(ax, s))
+    return pool

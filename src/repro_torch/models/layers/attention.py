@@ -1,0 +1,199 @@
+"""Attention for the ragged serving step: GQA with RoPE over a paged KV pool.
+
+Counterpart of the paged and ragged part of
+``repro.models.layers.attention``.  Layouts follow the JAX package: q is
+grouped (.., kvH, G, hd) with G = num_heads // num_kv_heads, weights are
+stored grouped — wq (D,kvH,G,hd), wo (kvH,G,hd,D) — and the pool is
+kp/vp (n_pages, page, kvH, hd) with a block table ptab (B, pps), per-slot
+absolute positions kpos (B, pps*page) (-1 = never written) and fill counts
+slen (B,).  int8 pools add float32 scale pools ks/vs (n_pages, page, kvH).
+
+Differences from JAX, on purpose:
+
+- The cache is updated IN PLACE: the step writes into the tensors of the
+  ``cache`` dict it is given and returns the same dict.  That replaces
+  donation; the pools keep their ``data_ptr()``.
+- Writes JAX drops with ``mode="drop"`` (the sentinel page ``n_pages``, the
+  sentinel kpos index ``pps*page``) are masked out; gathers JAX clips with
+  ``mode="clip"`` clamp their indices.
+- Weights are cast to the activation dtype once at load, not at each use.
+
+Windowed (circular-buffer) layers and cross-attention are not in this
+slice and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import AttnCfg
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers.embeddings import apply_rope
+
+NEG_INF = -1e30
+
+
+def check_attn(cfg: AttnCfg) -> None:
+    """Raise for attention variants outside the ported serving slice."""
+    if cfg.cross:
+        raise NotImplementedError(
+            "cross-attention (vision frontend) is not ported yet: it comes "
+            "with the hybrid-mixer slice")
+    if cfg.window is not None:
+        raise NotImplementedError(
+            "windowed circular-buffer attention is not ported yet: it comes "
+            "with the hybrid-mixer slice")
+
+
+def _project_q(params, cfg: AttnCfg, x):
+    """x (.., D) -> q (.., kvH, G, hd)."""
+    wq = params["wq"].to(x.dtype)
+    q = (x @ wq.reshape(wq.shape[0], -1)).reshape(*x.shape[:-1], *wq.shape[1:])
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+    return q
+
+
+def _project_kv(params, cfg: AttnCfg, x):
+    """x (.., D) -> k, v (.., kvH, hd)."""
+    out = []
+    for w, bias in (("wk", "bk"), ("wv", "bv")):
+        wt = params[w].to(x.dtype)
+        t = (x @ wt.reshape(wt.shape[0], -1)).reshape(*x.shape[:-1], *wt.shape[1:])
+        if cfg.qkv_bias:
+            t = t + params[bias].to(x.dtype)
+        out.append(t)
+    return out[0], out[1]
+
+
+def _out_proj(params, cfg: AttnCfg, o):
+    """o (.., kvH, G, hd) -> (.., D): contraction over (kvH, G, hd)."""
+    wo = params["wo"].to(o.dtype)
+    return o.reshape(*o.shape[:-3], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+# One device holds the whole pool, so the JAX package's replicate-before-
+# contract variant (which keeps sums device-count-independent under a KV-head
+# mesh) is the plain projection here.
+_out_proj_replicated = _out_proj
+
+
+def kv_cache_dtype(kv_dtype, act_dtype) -> torch.dtype:
+    """Resolve a ``kv_dtype`` name ("float32" | "bfloat16" | "int8"); None
+    follows the activation dtype."""
+    return act_dtype if kv_dtype is None else getattr(torch, kv_dtype)
+
+
+def init_paged_cache(cfg: AttnCfg, batch: int, cache_len: int, dtype, *,
+                     page_size: int, n_pages: int, kv_dtype=None,
+                     layers: int = 1, device=None):
+    """Paged cache of a global-attention layer, stacked over ``layers``
+    (a stage's repeats): every leaf has a leading layer axis.  ``kv_dtype``
+    (None | "float32" | "bfloat16" | "int8") sets the pool's storage dtype;
+    int8 pools add float32 scale pools ``ks``/``vs``."""
+    check_attn(cfg)
+    kvH, hd = cfg.num_kv_heads, cfg.head_dim
+    kvd = kv_cache_dtype(kv_dtype, dtype)
+    pps = -(-cache_len // page_size)
+    L = (layers,)
+    cache = {
+        "kp": torch.zeros(L + (n_pages, page_size, kvH, hd), dtype=kvd, device=device),
+        "vp": torch.zeros(L + (n_pages, page_size, kvH, hd), dtype=kvd, device=device),
+        "ptab": torch.full(L + (batch, pps), n_pages, dtype=torch.int32, device=device),
+        "kpos": torch.full(L + (batch, pps * page_size), -1, dtype=torch.int32,
+                           device=device),
+        "slen": torch.zeros(L + (batch,), dtype=torch.int32, device=device),
+    }
+    if kvd == torch.int8:
+        cache["ks"] = torch.zeros(L + (n_pages, page_size, kvH), device=device)
+        cache["vs"] = torch.zeros(L + (n_pages, page_size, kvH), device=device)
+    return cache
+
+
+def _paged_masked_attn(q, k, v, kpos, q_pos, window):
+    """Per-slot masked softmax: q (B,C,kvH,G,hd), k/v (B,T,kvH,hd),
+    kpos (B,T), q_pos (B,C) -> (B,C,kvH,G,hd)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqkgd,btkd->bkgqt", q, k).float() * scale
+    ok = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        ok &= (q_pos[:, :, None] - kpos[:, None, :]) < window
+    ok = ok[:, None, None, :, :]
+    p = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1).to(q.dtype)
+    p = torch.where(ok, p, 0.0)
+    return torch.einsum("bkgqt,btkd->bqkgd", p, v)
+
+
+def _scatter_paged_kv(cache, k_new, v_new, page, off):
+    """Write new K/V rows into the pool at (page, off), in place — the one
+    write path of the step.  int8 pools quantize on write; sentinel pages
+    drop the write either way."""
+    if "ks" in cache:
+        kops.kv_scatter_quantized(cache["kp"], cache["ks"], k_new, page, off)
+        kops.kv_scatter_quantized(cache["vp"], cache["vs"], v_new, page, off)
+        return
+    m = kops.live_writes(page, cache["kp"].shape[0])
+    pm, om = page[m], off[m]
+    cache["kp"][pm, om] = k_new[m].to(cache["kp"].dtype)
+    cache["vp"][pm, om] = v_new[m].to(cache["vp"].dtype)
+
+
+def _gather_paged_kv(cache, dtype):
+    """Gather the whole block-table context from the pool (block-table
+    entries clamp into the pool, like JAX's ``mode="clip"``), dequantizing
+    int8 pools.  Returns (k, v) of shape (B, pps, P, kvH, hd) in ``dtype``."""
+    idx = cache["ptab"].long().clamp(0, cache["kp"].shape[0] - 1)
+    k, v = cache["kp"][idx], cache["vp"][idx]
+    if "ks" in cache:
+        return (kops.dequantize_kv(k, cache["ks"][idx], dtype),
+                kops.dequantize_kv(v, cache["vs"][idx], dtype))
+    return k.to(dtype), v.to(dtype)
+
+
+def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,
+                          *, flash_decode: bool = False):
+    """One ragged serving step: a flat pack of T tokens from any slots.
+
+    x: (1, T, D) hidden pack; slot/q_pos/valid: (T,) per-token slot index,
+    absolute position and validity.  Writes the pack's K/V into the pool,
+    then attends: with ``flash_decode`` through the ragged paged kernel
+    (``kernels.ops.ragged_paged_flash``), otherwise through a gather of
+    every token's slot context.  Returns (out (1, T, D), cache) with the
+    cache updated in place."""
+    check_attn(cfg)
+    q = _project_q(params, cfg, x)[0]  # (T,kvH,G,hd)
+    k_new, v_new = (t[0] for t in _project_kv(params, cfg, x))  # (T,kvH,hd)
+    if cfg.rope_theta is not None:
+        q = apply_rope(q[None], q_pos[None], cfg.rope_theta)[0]
+        k_new = apply_rope(k_new[None], q_pos[None], cfg.rope_theta)[0]
+
+    sl, qp = slot.long(), q_pos.long()
+    B = cache["slen"].shape[0]
+    P = cache["kp"].shape[1]
+    n_pages = cache["kp"].shape[0]
+    pps = cache["ptab"].shape[-1]
+    page_slot = torch.clamp(torch.div(qp, P, rounding_mode="floor"), 0, pps - 1)
+    page = cache["ptab"][sl, page_slot].long()
+    page = torch.where(valid, page, n_pages)  # sentinel: write dropped
+    off = torch.remainder(qp, P)
+    _scatter_paged_kv(cache, k_new, v_new, page, off)
+    Tc = pps * P
+    w = valid & (qp >= 0) & (qp < Tc)  # JAX drops kpos writes outside [0, Tc)
+    cache["kpos"][sl[w], qp[w]] = q_pos[w].to(cache["kpos"].dtype)
+    cache["slen"].scatter_reduce_(
+        0, sl, torch.where(valid, q_pos + 1, 0).to(cache["slen"].dtype),
+        "amax", include_self=True)
+
+    if flash_decode:
+        lens = torch.where(valid, q_pos + 1, 0).to(torch.int32)
+        o = kops.ragged_paged_flash(q, cache["kp"], cache["vp"], cache["ptab"],
+                                    slot.to(torch.int32), lens,
+                                    ks=cache.get("ks"), vs=cache.get("vs"))
+        return _out_proj_replicated(params, cfg, o[None]), cache
+
+    k_all, v_all = _gather_paged_kv(cache, q.dtype)
+    kvH, hd = cfg.num_kv_heads, cfg.head_dim
+    k_tok = k_all.reshape(B, Tc, kvH, hd)[sl]  # (T,Tc,kvH,hd)
+    v_tok = v_all.reshape(B, Tc, kvH, hd)[sl]
+    o = _paged_masked_attn(q[:, None], k_tok, v_tok, cache["kpos"][sl],
+                           q_pos[:, None], cfg.window)  # (T,1,kvH,G,hd)
+    return _out_proj_replicated(params, cfg, o.transpose(0, 1)), cache

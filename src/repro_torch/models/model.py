@@ -1,0 +1,147 @@
+"""Model entry points of the serving slice: init, paged state, the ragged
+step and its control-plane companions.
+
+Counterpart of ``repro.models.model``.  Parameters live in a ``Model``
+``nn.Module`` whose parameter names follow the JAX pytree paths
+(``embed.tok_embed``, ``stages.0.0.mixer.wq``, ``final_norm.scale``), with
+each stage's per-layer tensors stacked on a leading layer axis.  Matrices,
+biases and the embedding table are stored in the activation dtype
+(``cfg.dtype``), cast once at load where JAX casts its float32 parameters
+at every use; RMSNorm scales stay float32.  The decode state is a plain
+pytree of tensors ({"layers": [[cache per pattern position] per stage]})
+that every function here updates in place.
+
+Supported: decoder token models whose every block is global attention with
+a dense FFN.  Everything else raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelCfg
+from repro_torch.kernels import ops as kops
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import embeddings as emb
+from repro_torch.models.layers.common import embed_init
+from repro_torch.models.layers.norms import rmsnorm
+
+
+def check_supported(cfg: ModelCfg) -> None:
+    """Raise ``NotImplementedError`` for any config outside the slice."""
+    if cfg.frontend is not None or cfg.is_encoder:
+        raise NotImplementedError(
+            "audio/vision frontends and encoders are not ported: paged "
+            "serving covers decoder token models")
+    if not cfg.tie_embeddings:
+        raise NotImplementedError("untied output heads are not ported yet")
+    if cfg.abs_pos != "none":
+        raise NotImplementedError("absolute position encodings are not ported yet")
+    for st in cfg.stages:
+        for blk in st.pattern:
+            tfm.check_block(blk)
+
+
+class Model(nn.Module):
+    """Parameter container mirroring the JAX pytree (see module docstring)."""
+
+    def __init__(self, tok_embed: torch.Tensor, stages, final_scale: torch.Tensor):
+        super().__init__()
+        self.embed = nn.ParameterDict(
+            {"tok_embed": nn.Parameter(tok_embed, requires_grad=False)})
+        self.stages = nn.ModuleList(nn.ModuleList(st) for st in stages)
+        self.final_norm = nn.ParameterDict(
+            {"scale": nn.Parameter(final_scale, requires_grad=False)})
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm["scale"].device
+
+
+def init_params(cfg: ModelCfg, *, generator: torch.Generator = None,
+                device=None) -> Model:
+    """Random weights with the JAX package's scheme (truncated-normal
+    fan-in dense weights, truncated-normal embedding, unit norm scales,
+    zero biases), drawn from ``generator`` on ``device`` (default: seed 0
+    on ``cuda``).  Not the JAX bits: tests bridge JAX's weights instead."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    dt = getattr(torch, cfg.dtype)
+    tok = embed_init(generator, (cfg.vocab_size, cfg.d_model), device=dev).to(dt)
+    stages = [[tfm.init_block(generator, cfg, blk, st.repeats, dtype=dt,
+                              device=dev) for blk in st.pattern]
+              for st in cfg.stages]
+    return Model(tok, stages, torch.ones(cfg.d_model, device=dev))
+
+
+def init_paged_state(params: Model, cfg: ModelCfg, batch: int, cache_len: int,
+                     *, page_size: int, n_pages: int, kv_dtype=None) -> Dict:
+    """Decode state for the paged serving engine, on the params' device:
+    block-table-indexed KV pools of ``n_pages`` pages of ``page_size`` per
+    layer.  ``kv_dtype`` (None | "float32" | "bfloat16" | "int8") selects
+    the pools' storage; int8 pools carry float32 scale pools."""
+    check_supported(cfg)
+    dt = getattr(torch, cfg.dtype)
+    return {"layers": [tfm.init_stage_state_paged(
+        cfg, st, batch, cache_len, dt, page_size=page_size, n_pages=n_pages,
+        kv_dtype=kv_dtype, device=params.device) for st in cfg.stages]}
+
+
+def ragged_step(params: Model, cfg: ModelCfg, state, tokens, slot, q_pos,
+                seq_idx, valid, logit_idx, *, width: int,
+                flash_decode: bool = False):
+    """One ragged token-budget step: T tokens from any mix of slots/phases.
+
+    tokens/slot/q_pos/seq_idx/valid: (T,) tensors on the params' device;
+    logit_idx: (B,) index into the pack of each slot's sampled token (T =
+    no sample; that row's logits are garbage the engine ignores).  Writes
+    the pack into the state in place and returns (logits (B, V), state).
+    The speculative (B, R) form of ``logit_idx`` comes with the speculative
+    decoding slice."""
+    if logit_idx.ndim != 1:
+        raise NotImplementedError(
+            "logit_idx of shape (B, R) (speculative verify rows) is not "
+            "ported yet: it comes with the speculative-decoding slice")
+    dt = getattr(torch, cfg.dtype)
+    x = emb.embed_tokens(params.embed, tokens.long()[None], dt)  # (1,T,D)
+    for st, sp, ss in zip(cfg.stages, params.stages, state["layers"]):
+        x, _ = tfm.stage_step_ragged(sp, cfg, st, x, ss, slot, q_pos, seq_idx,
+                                     valid, width=width,
+                                     flash_decode=flash_decode)
+    # only the sampled rows go through the final norm and the head
+    sel = x[0][torch.clamp(logit_idx.long(), max=x.shape[1] - 1)]
+    sel = rmsnorm(params.final_norm, sel, cfg.norm_eps)
+    logits = emb.logits_from_hidden({}, sel, tied_embed=params.embed["tok_embed"])
+    return logits, state
+
+
+def reset_paged_slots(cfg: ModelCfg, state, init_state, mask, ptab_rows,
+                      prefix_len) -> Dict:
+    """Admission, in place: for slots where ``mask`` is set, install the
+    host-allocated block-table rows, make the ``prefix_len`` inherited
+    prefix positions live, and restore other per-slot leaves from
+    ``init_state`` (a template that must not alias ``state``).  Pools are
+    shared and untouched — they double as the prefix cache."""
+    for st, ss, is0 in zip(cfg.stages, state["layers"], init_state["layers"]):
+        tfm.reset_stage_slots(st, ss, is0, mask, ptab_rows, prefix_len)
+    return state
+
+
+def copy_kv_pages(cfg: ModelCfg, state, src, dst) -> Dict:
+    """Copy-on-write, in place: duplicate pool pages ``src[i] -> dst[i]``
+    in every layer's pools, int8 scale rows with their pages.  Sentinel
+    pairs (``n_pages``) are no-ops (see ``kernels.ops.copy_pages``)."""
+    for stage_state in state["layers"]:
+        for cache in stage_state:
+            for name in ("kp", "vp"):
+                kops.copy_pages(cache[name], src, dst)
+            for name in ("ks", "vs"):
+                if name in cache:
+                    kops.copy_pages(cache[name], src, dst,
+                                    axis=cache[name].ndim - 3)
+    return state

@@ -1,0 +1,32 @@
+"""The serving step builder of the ragged engine.
+
+Counterpart of ``repro.serve.serve_step.make_ragged_step``: the engine's
+one step over a flat (T,) token pack in which every entry carries its own
+(slot, position, validity), so any mix of prefill-chunk and decode tokens
+runs through the same code.  JAX jits it with the state donated; here it
+runs eagerly and updates the state's tensors in place, which is what
+keeps the pools at fixed addresses.  Capturing it in a CUDA graph is left
+for a later slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelCfg
+from repro_torch.models import model as M
+
+
+def make_ragged_step(cfg: ModelCfg, *, width: int, flash_decode: bool = False):
+    """Build ``f(params, state, tokens, slot, q_pos, seq_idx, valid,
+    logit_idx) -> (logits (B, V), state)`` with all pack vectors (T,) and
+    ``logit_idx`` (B,), tensors on the params' device
+    (see ``models.model.ragged_step``)."""
+
+    @torch.no_grad()
+    def ragged_step(params, state, tokens, slot, q_pos, seq_idx, valid,
+                    logit_idx):
+        return M.ragged_step(params, cfg, state, tokens, slot, q_pos,
+                             seq_idx, valid, logit_idx, width=width,
+                             flash_decode=flash_decode)
+
+    return ragged_step
