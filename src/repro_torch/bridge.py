@@ -7,15 +7,19 @@ and hand them here, so this module never sees JAX.
 - ``params_from_numpy`` builds the port's ``Model`` from the numpy pytree of
   ``repro.models.model.init_params``.  Stages keep the stacked leading layer
   axis (a ``repeats == 1`` stage, unstacked in JAX, gains a layer axis of
-  1); matrices, biases and the embedding are cast to the activation dtype,
-  norm scales stay float32.
+  1); in the serving layout matrices, biases and the embedding are cast to
+  the activation dtype and norm scales stay float32; in the training layout
+  (``for_training=True``) every leaf is in the parameter dtype, with grads.
+- ``params_to_numpy`` / ``grads_to_numpy`` lay a ``Model``'s parameters,
+  or a list of tensors in ``Model.parameters()`` order (gradients, AdamW
+  moments), out like the JAX pytree, so tests compare leaf by leaf.
 - ``state_from_numpy`` / ``state_to_numpy`` convert the paged decode state
   ({"layers": [[{kp, vp, [ks, vs], ptab, kpos, slen}]]}) both ways, with
   the same layer-axis rule, leaf dtypes unchanged.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -34,21 +38,55 @@ def _tensor(a, dtype=None, device=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_numpy(tree: Dict, cfg: ModelCfg, device) -> M.Model:
-    """The port's ``Model`` from a numpy pytree of JAX parameters."""
+def params_from_numpy(tree: Dict, cfg: ModelCfg, device,
+                      for_training: bool = False) -> M.Model:
+    """The port's ``Model`` from a numpy pytree of JAX parameters, in the
+    serving layout or, with ``for_training``, the training layout."""
     M.check_supported(cfg)
-    dt = getattr(torch, cfg.dtype)
+    dt = getattr(torch, cfg.param_dtype if for_training else cfg.dtype)
+    norm_dt = dt if for_training else torch.float32
     stages = []
     for st, sp in zip(cfg.stages, tree["stages"]):
         blocks = sp if st.repeats > 1 else [
             {g: {k: np.asarray(v)[None] for k, v in leaves.items()}
              for g, leaves in bp.items()} for bp in sp]
         stages.append([tfm.Block({
-            g: {k: _tensor(v, torch.float32 if g.endswith("norm") else dt,
-                           device) for k, v in leaves.items()}
-            for g, leaves in bp.items()}) for bp in blocks])
+            g: {k: _tensor(v, norm_dt if g.endswith("norm") else dt, device)
+                for k, v in leaves.items()}
+            for g, leaves in bp.items()}, for_training) for bp in blocks])
     return M.Model(_tensor(tree["embed"]["tok_embed"], dt, device), stages,
-                   _tensor(tree["final_norm"]["scale"], torch.float32, device))
+                   _tensor(tree["final_norm"]["scale"], norm_dt, device),
+                   for_training)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def grads_to_numpy(params: M.Model, tensors: Sequence[torch.Tensor],
+                   cfg: ModelCfg) -> Dict:
+    """``tensors`` (one per parameter, in ``params.parameters()`` order) as
+    a numpy pytree laid out like JAX's parameters (bf16 as float32)."""
+    names = [n for n, _ in params.named_parameters()]
+    if len(names) != len(tensors):
+        raise ValueError(f"{len(tensors)} tensors for {len(names)} parameters")
+    out = {"stages": [[{} for _ in st.pattern] for st in cfg.stages]}
+    for name, t in zip(names, tensors):
+        path = name.split(".")
+        if path[0] == "stages":
+            s, i, group, leaf = int(path[1]), int(path[2]), path[3], path[4]
+            a = _numpy(t)
+            out["stages"][s][i].setdefault(group, {})[leaf] = (
+                a if cfg.stages[s].repeats > 1 else a[0])
+        else:
+            out.setdefault(path[0], {})[path[1]] = _numpy(t)
+    return out
+
+
+def params_to_numpy(params: M.Model, cfg: ModelCfg) -> Dict:
+    """The parameters as a numpy pytree laid out like JAX's."""
+    return grads_to_numpy(params, list(params.parameters()), cfg)
 
 
 def state_from_numpy(tree: Dict, cfg: ModelCfg, device) -> Dict:
@@ -63,13 +101,6 @@ def state_from_numpy(tree: Dict, cfg: ModelCfg, device) -> Dict:
 
 def state_to_numpy(state: Dict, cfg: ModelCfg) -> Dict:
     """A numpy pytree laid out like the JAX state (bf16 leaves as float32)."""
-    def arr(t: torch.Tensor, repeats: int):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        a = t.numpy()
-        return a if repeats > 1 else a[0]
-
-    return {"layers": [[{k: arr(v, st.repeats) for k, v in cache.items()}
-                        for cache in ss]
+    return {"layers": [[{k: _numpy(v) if st.repeats > 1 else _numpy(v)[0]
+                         for k, v in cache.items()} for cache in ss]
                        for st, ss in zip(cfg.stages, state["layers"])]}

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the root
 of the checkout, at first use; the hash covers the source and the flags, so
-an edited source builds anew and an unchanged one is reused.  The library is
+an edited source builds anew and an unchanged one is reused.
+``build_all`` starts one ``nvcc`` per source, all at once.  The library is
 loaded with ``ctypes``.  Nothing here runs at import time: this module is
 imported on machines that have no CUDA toolkit, where only the plain
 PyTorch versions run.
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -45,19 +46,38 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the
     compiler log of the build that made the library (kept beside it).
     Raises with the compiler's output if the build fails."""
-    so = library_path(name)
-    log = so.with_suffix(".log")
-    if not so.exists():
+    return build_all([name])[name]
+
+
+def build_all(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every ``csrc/<name>.cu`` not built yet, one ``nvcc`` process
+    per source, all started together.  Returns {name: compiler log}.  Waits
+    for every process, then raises with the output of each source that
+    failed."""
+    names = list(dict.fromkeys(names))
+    procs = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-        log.write_text(proc.stdout)
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+            continue
+        so.with_suffix(".log").write_text(out)
         os.replace(tmp, so)  # atomic: concurrent builders never see half a file
-    return log.read_text()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name).with_suffix(".log").read_text()
+            for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,9 +1,11 @@
 """Public kernel entry points and the paged pool's int8 and page helpers.
 
-Counterpart of ``repro.kernels.ops`` for this slice: the ragged paged
-attention entry point, the symmetric int8 KV quantization of the serving
-pools (one float32 scale per pool entry per KV head, absmax over the head
-dim), the quantize-on-write scatter, and the copy-on-write page copy.
+Counterpart of ``repro.kernels.ops`` for the ported slices: the ragged paged
+attention entry point, the causal flash attention entry point and its
+differentiable grouped-layout form (``flash_attention_grouped``, the
+training path's attention), the symmetric int8 KV quantization of the
+serving pools (one float32 scale per pool entry per KV head, absmax over the
+head dim), the quantize-on-write scatter, and the copy-on-write page copy.
 
 The pools are updated IN PLACE (``kv_scatter_quantized``, ``copy_pages``):
 that replaces JAX's buffer donation, so a pool keeps its ``data_ptr()`` for
@@ -15,7 +17,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ragged_paged_flash as _rpf
+
+
+def flash_attention(q, k, v, *, bq=128, bk=128, window=None):
+    """Causal flash attention: q (BH,S,hd), k/v (BKV,S,hd) -> (BH,S,hd).
+    CUDA tensors launch the hand-written kernel
+    (``kernels/csrc/flash_attention.cu``), CPU tensors run its plain
+    PyTorch version."""
+    return _fa.flash_attention(q, k, v, bq=bq, bk=bk, window=window)
 
 
 def ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
@@ -26,6 +37,57 @@ def ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
     hand-written kernel (``kernels/csrc/ragged_paged_flash.cu``), CPU
     tensors run its plain PyTorch version."""
     return _rpf.ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=ks, vs=vs)
+
+
+def _flash_grouped_local(q, k, v, window):
+    """Grouped-layout kernel call.
+    q: (B,S,kvH,G,hd); k,v: (B,S,kvH,hd) -> (B,S,kvH,G,hd)."""
+    B, S, kvH, G, hd = q.shape
+    # contiguous first: reshape alone may return a strided view (B == 1)
+    qk = q.movedim(1, 3).contiguous().view(B * kvH * G, S, hd)
+    kk = k.movedim(1, 2).contiguous().view(B * kvH, S, hd)
+    vk = v.movedim(1, 2).contiguous().view(B * kvH, S, hd)
+    bq = bk = max(min(128, S), 1)
+    o = flash_attention(qk, kk, vk, bq=bq, bk=bk, window=window)
+    return o.reshape(B, kvH, G, S, hd).movedim(3, 1)
+
+
+def _ref_grouped(q, k, v, window):
+    """The chunked attention that the backward pass differentiates (JAX has
+    no backward kernel either)."""
+    from repro_torch.models.layers.attention import _chunked_attn
+
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    return _chunked_attn(q, k, v, pos, pos, True, window,
+                         min(128, S) if S % min(128, S) == 0 else S)
+
+
+class _FlashGrouped(torch.autograd.Function):
+    """JAX's ``custom_vjp`` ``_flash_grouped``: the kernel forward; the
+    backward recomputes ``_ref_grouped`` from the saved q, k, v and returns
+    its vector-Jacobian product.  The mesh (``shard_map``) branch of JAX's
+    forward waits for the multi-GPU slice."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        ctx.window = window
+        ctx.save_for_backward(q, k, v)
+        return _flash_grouped_local(q, k, v, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = _ref_grouped(q, k, v, ctx.window)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        return dq, dk, dv, None
+
+
+def flash_attention_grouped(q, k, v, *, window=None):
+    """Differentiable grouped-layout flash attention.
+    q: (B,S,kvH,G,hd); k,v: (B,S,kvH,hd) -> (B,S,kvH,G,hd)."""
+    return _FlashGrouped.apply(q, k, v, window)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Attention for the ragged serving step: GQA with RoPE over a paged KV pool.
+"""Attention: GQA with RoPE over a paged KV pool for the ragged serving
+step, and full-sequence causal attention for training.
 
-Counterpart of the paged and ragged part of
+Counterpart of the paged, ragged and full-sequence parts of
 ``repro.models.layers.attention``.  Layouts follow the JAX package: q is
 grouped (.., kvH, G, hd) with G = num_heads // num_kv_heads, weights are
 stored grouped — wq (D,kvH,G,hd), wo (kvH,G,hd,D) — and the pool is
@@ -16,7 +17,9 @@ Differences from JAX, on purpose:
 - Writes JAX drops with ``mode="drop"`` (the sentinel page ``n_pages``, the
   sentinel kpos index ``pps*page``) are masked out; gathers JAX clips with
   ``mode="clip"`` clamp their indices.
-- Weights are cast to the activation dtype once at load, not at each use.
+- Serving weights are cast to the activation dtype once at load, not at
+  each use; training weights stay in the parameter dtype and are cast at
+  each use, as in JAX.
 
 Windowed (circular-buffer) layers and cross-attention are not in this
 slice and raise ``NotImplementedError``.
@@ -33,7 +36,7 @@ NEG_INF = -1e30
 
 
 def check_attn(cfg: AttnCfg) -> None:
-    """Raise for attention variants outside the ported serving slice."""
+    """Raise for attention variants outside the ported slices."""
     if cfg.cross:
         raise NotImplementedError(
             "cross-attention (vision frontend) is not ported yet: it comes "
@@ -107,6 +110,66 @@ def init_paged_cache(cfg: AttnCfg, batch: int, cache_len: int, dtype, *,
         cache["ks"] = torch.zeros(L + (n_pages, page_size, kvH), device=device)
         cache["vs"] = torch.zeros(L + (n_pages, page_size, kvH), device=device)
     return cache
+
+
+def _mask_bias(q_pos, k_pos, causal: bool, window):
+    """(Sq, Sk) additive bias in float32."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        ok &= (q_pos[:, None] - k_pos[None, :]) < window
+    ok &= k_pos[None, :] >= 0  # invalid (unwritten) cache slots carry pos=-1
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _softmax_attn(q, k, v, bias):
+    """q: (B,Sq,kvH,G,hd)  k,v: (B,Sk,kvH,hd)  bias: (Sq,Sk) -> (B,Sq,kvH,G,hd)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqkgd,btkd->bkgqt", q, k).float() * scale
+    p = torch.softmax(s + bias, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqt,btkd->bqkgd", p, v)
+
+
+def _chunked_attn(q, k, v, q_positions, k_positions, causal, window, q_chunk):
+    """A loop over query chunks (JAX's ``lax.scan``); memory ~ one
+    (q_chunk x Sk) score block per chunk."""
+    S = q.shape[1]
+    out = []
+    for c in range(0, S, q_chunk):
+        bias = _mask_bias(q_positions[c:c + q_chunk], k_positions, causal, window)
+        out.append(_softmax_attn(q[:, c:c + q_chunk], k, v, bias))
+    return torch.cat(out, dim=1)
+
+
+def attention_fwd(params, cfg: AttnCfg, x, *, positions=None, enc=None,
+                  q_chunk: int = 128, use_flash: bool = False):
+    """Full-sequence causal self-attention (training).  x: (B, S, D).
+    Three routes, as in JAX: ``use_flash`` goes through the flash kernel
+    (``kernels.ops.flash_attention_grouped``); otherwise a full softmax when
+    ``S <= 2*q_chunk`` or ``S % q_chunk != 0``, else the chunked softmax.
+    ``enc`` (cross-attention) is not ported: ``check_attn`` raises."""
+    check_attn(cfg)
+    S = x.shape[1]
+    q = _project_q(params, cfg, x)
+    k, v = _project_kv(params, cfg, x)
+    T = k.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if cfg.rope_theta is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    k_positions = torch.arange(T, device=x.device)
+    if use_flash and cfg.causal and cfg.window is None and S == T:
+        o = kops.flash_attention_grouped(q, k, v)
+    elif S <= 2 * q_chunk or S % q_chunk != 0:
+        o = _softmax_attn(q, k, v, _mask_bias(positions, k_positions,
+                                              cfg.causal, cfg.window))
+    else:
+        o = _chunked_attn(q, k, v, positions, k_positions, cfg.causal,
+                          cfg.window, q_chunk)
+    return _out_proj(params, cfg, o)
 
 
 def _paged_masked_attn(q, k, v, kpos, q_pos, window):

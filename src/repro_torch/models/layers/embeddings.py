@@ -1,10 +1,10 @@
 """Token embeddings, the tied output head, and RoPE.
 
-Counterpart of ``repro.models.layers.embeddings``.  The embedding table is
-stored in the activation dtype once at load (``models.model.init_params``,
-``bridge.params_from_numpy``), so the ``.to(dtype)`` below is a no-op on the
-serving path; JAX casts the float32 table at every use, which gives the same
-values.
+Counterpart of ``repro.models.layers.embeddings``.  In the serving layout
+the embedding table is stored in the activation dtype once at load
+(``models.model.init_params``, ``bridge.params_from_numpy``), so the
+``.to(dtype)`` below is a no-op there; JAX casts the float32 table at every
+use, which gives the same values, and so does the training layout.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Dense FFN (optionally gated / SwiGLU) — ``repro.models.layers.mlp``.
 
-Weights are stored in the activation dtype once at load, where JAX casts
-at every use; the values are the same.
+Serving weights are stored in the activation dtype once at load, where JAX
+casts at every use; the values are the same.  Training weights stay in the
+parameter dtype and are cast here, at every use, as in JAX.
 """
 from __future__ import annotations
 

@@ -1,22 +1,29 @@
-"""Model entry points of the serving slice: init, paged state, the ragged
-step and its control-plane companions.
+"""Model entry points: init, forward and loss (training), paged state, the
+ragged step and its control-plane companions (serving).
 
 Counterpart of ``repro.models.model``.  Parameters live in a ``Model``
 ``nn.Module`` whose parameter names follow the JAX pytree paths
 (``embed.tok_embed``, ``stages.0.0.mixer.wq``, ``final_norm.scale``), with
-each stage's per-layer tensors stacked on a leading layer axis.  Matrices,
-biases and the embedding table are stored in the activation dtype
-(``cfg.dtype``), cast once at load where JAX casts its float32 parameters
-at every use; RMSNorm scales stay float32.  The decode state is a plain
-pytree of tensors ({"layers": [[cache per pattern position] per stage]})
-that every function here updates in place.
+each stage's per-layer tensors stacked on a leading layer axis.  Two
+layouts:
+
+- serving (the default): matrices, biases and the embedding table are
+  stored in the activation dtype (``cfg.dtype``), cast once at load where
+  JAX casts its float32 parameters at every use; RMSNorm scales stay
+  float32; nothing requires grad.
+- training (``for_training=True``): every leaf in ``cfg.param_dtype``, as
+  JAX stores it, with ``requires_grad``; the layers cast at use.
+
+The decode state is a plain pytree of tensors ({"layers": [[cache per
+pattern position] per stage]}) that every serving function here updates in
+place.
 
 Supported: decoder token models whose every block is global attention with
 a dense FFN.  Everything else raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -29,13 +36,16 @@ from repro_torch.models.layers import embeddings as emb
 from repro_torch.models.layers.common import embed_init
 from repro_torch.models.layers.norms import rmsnorm
 
+MOE_LB_WEIGHT = 0.01
+MOE_Z_WEIGHT = 1e-3
+
 
 def check_supported(cfg: ModelCfg) -> None:
     """Raise ``NotImplementedError`` for any config outside the slice."""
     if cfg.frontend is not None or cfg.is_encoder:
         raise NotImplementedError(
-            "audio/vision frontends and encoders are not ported: paged "
-            "serving covers decoder token models")
+            "audio/vision frontends and encoders are not ported: the ported "
+            "slices cover decoder token models")
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied output heads are not ported yet")
     if cfg.abs_pos != "none":
@@ -46,15 +56,18 @@ def check_supported(cfg: ModelCfg) -> None:
 
 
 class Model(nn.Module):
-    """Parameter container mirroring the JAX pytree (see module docstring)."""
+    """Parameter container mirroring the JAX pytree (see module docstring);
+    ``trainable`` sets ``requires_grad`` of the embedding and final norm
+    (blocks carry their own)."""
 
-    def __init__(self, tok_embed: torch.Tensor, stages, final_scale: torch.Tensor):
+    def __init__(self, tok_embed: torch.Tensor, stages, final_scale: torch.Tensor,
+                 trainable: bool = False):
         super().__init__()
         self.embed = nn.ParameterDict(
-            {"tok_embed": nn.Parameter(tok_embed, requires_grad=False)})
+            {"tok_embed": nn.Parameter(tok_embed, requires_grad=trainable)})
         self.stages = nn.ModuleList(nn.ModuleList(st) for st in stages)
         self.final_norm = nn.ParameterDict(
-            {"scale": nn.Parameter(final_scale, requires_grad=False)})
+            {"scale": nn.Parameter(final_scale, requires_grad=trainable)})
 
     @property
     def device(self) -> torch.device:
@@ -62,21 +75,74 @@ class Model(nn.Module):
 
 
 def init_params(cfg: ModelCfg, *, generator: torch.Generator = None,
-                device=None) -> Model:
+                device=None, for_training: bool = False) -> Model:
     """Random weights with the JAX package's scheme (truncated-normal
     fan-in dense weights, truncated-normal embedding, unit norm scales,
     zero biases), drawn from ``generator`` on ``device`` (default: seed 0
-    on ``cuda``).  Not the JAX bits: tests bridge JAX's weights instead."""
+    on ``cuda``), in the serving layout or, with ``for_training``, the
+    training layout (module docstring).  Not the JAX bits: tests bridge
+    JAX's weights instead."""
     check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    dt = getattr(torch, cfg.dtype)
+    dt = getattr(torch, cfg.param_dtype if for_training else cfg.dtype)
     tok = embed_init(generator, (cfg.vocab_size, cfg.d_model), device=dev).to(dt)
     stages = [[tfm.init_block(generator, cfg, blk, st.repeats, dtype=dt,
-                              device=dev) for blk in st.pattern]
+                              device=dev, trainable=for_training)
+               for blk in st.pattern]
               for st in cfg.stages]
-    return Model(tok, stages, torch.ones(cfg.d_model, device=dev))
+    final = torch.ones(cfg.d_model, device=dev,
+                       dtype=dt if for_training else torch.float32)
+    return Model(tok, stages, final, trainable=for_training)
+
+
+# ---------------------------------------------------------------------------
+# Forward / loss (training)
+
+
+def forward(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
+    """batch["tokens"]: (B, S) ints -> (logits (B, S, V) in the activation
+    dtype, aux dict)."""
+    check_supported(cfg)
+    x = emb.embed_tokens(params.embed, batch["tokens"].long(),
+                         getattr(torch, cfg.dtype))
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = dict(tfm.ZERO_AUX)
+    for st, sp in zip(cfg.stages, params.stages):
+        x, a = tfm.stage_fwd(sp, cfg, st, x, positions=positions)
+        aux = tfm._add_aux(aux, a)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    logits = emb.logits_from_hidden({}, x, tied_embed=params.embed["tok_embed"])
+    return logits, aux
+
+
+def _xent(logits, labels):
+    """Per-token cross entropy in float32: logsumexp minus the target
+    logit.  JAX picks the target with a (B,S,V) one-hot mask (1.2 GB at
+    qwen2-1.5b's vocab and 8192 tokens); ``gather`` gives the same values."""
+    lf = logits.float()
+    tgt = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(lf, dim=-1) - tgt  # (B,S)
+
+
+def loss_fn(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
+    """-> (total loss, metrics {"ce_loss", "moe_lb_loss", "moe_z_loss"});
+    ``batch["loss_mask"]``, when present, weights the tokens."""
+    logits, aux = forward(params, cfg, batch)
+    per_tok = _xent(logits, batch["labels"])
+    if "loss_mask" in batch:
+        mask = batch["loss_mask"].float()
+        loss = torch.sum(per_tok * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    else:
+        loss = torch.mean(per_tok)
+    total = (loss + MOE_LB_WEIGHT * aux["moe_lb_loss"]
+             + MOE_Z_WEIGHT * aux["moe_z_loss"])
+    return total, {"ce_loss": loss, **aux}
+
+
+# ---------------------------------------------------------------------------
+# Paged serving
 
 
 def init_paged_state(params: Model, cfg: ModelCfg, batch: int, cache_len: int,

@@ -1,22 +1,24 @@
-"""Blocks and stages of the ragged serving step.
+"""Blocks and stages: the training forward and the ragged serving step.
 
-Counterpart of the serving part of ``repro.models.transformer``.  A stage's
-repeats keep JAX's stacked layout — every parameter and state leaf of a
-pattern position carries a leading layer axis (``transformer.py:97-100`` of
-the JAX package) — and the ``lax.scan`` over that axis becomes a Python
-loop over per-layer views.  The views share storage with the stacked
-tensors, so the in-place cache writes of each layer land in the stacked
-state.
+Counterpart of ``repro.models.transformer``.  A stage's repeats keep JAX's
+stacked layout — every parameter and state leaf of a pattern position
+carries a leading layer axis (``transformer.py:97-100`` of the JAX package)
+— and the ``lax.scan`` over that axis becomes a Python loop over per-layer
+views.  The views share storage with the stacked tensors, so the in-place
+cache writes of each layer land in the stacked state, and the gradients of
+the training forward land in the stacked parameters.
 
 Only dense global-attention blocks with a dense FFN are in this slice;
 mamba, xLSTM and MoE mixers raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import BlockCfg, ModelCfg, Stage
 from repro_torch.models.layers import attention as attn
@@ -26,6 +28,13 @@ from repro_torch.models.layers.norms import rmsnorm
 
 # per-slot pool leaves shared by every slot: survive slot resets
 POOL_LEAVES = ("kp", "vp", "ks", "vs")
+
+# MoE auxiliary losses; always zero in the ported slices (no MoE FFN yet)
+ZERO_AUX = {"moe_lb_loss": torch.zeros(()), "moe_z_loss": torch.zeros(())}
+
+
+def _add_aux(a, b):
+    return {k: a[k] + b[k] for k in a}
 
 
 def check_block(blk: BlockCfg) -> None:
@@ -40,28 +49,28 @@ def check_block(blk: BlockCfg) -> None:
             "MoE FFNs are not ported yet: they come with the hybrid-mixer slice")
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Block(nn.Module):
     """One pattern position of a stage, its leaves stacked over the stage's
     repeats.  Parameter names follow the JAX pytree: ``mixer_norm.scale``,
     ``mixer.{wq,wk,wv,wo,bq,bk,bv}``, ``ffn_norm.scale``,
-    ``ffn.{w_up,w_gate,w_down}``."""
+    ``ffn.{w_up,w_gate,w_down}``.  ``trainable`` sets ``requires_grad``."""
 
-    def __init__(self, tensors: Dict[str, Dict[str, torch.Tensor]]):
+    def __init__(self, tensors: Dict[str, Dict[str, torch.Tensor]],
+                 trainable: bool = False):
         super().__init__()
         for group, leaves in tensors.items():
             setattr(self, group, nn.ParameterDict(
-                {k: _param(v) for k, v in leaves.items()}))
+                {k: nn.Parameter(v, requires_grad=trainable)
+                 for k, v in leaves.items()}))
 
 
 def init_block(generator, cfg: ModelCfg, blk: BlockCfg, repeats: int, *,
-               dtype, device) -> Block:
+               dtype, device, trainable: bool = False) -> Block:
     """Random block weights, stacked over ``repeats``: float32 truncated
-    normals cast once to the activation ``dtype``; norm scales (ones) and
-    zero biases as in JAX, the scales kept float32."""
+    normals cast once to ``dtype``; norm scales (ones) and zero biases as in
+    JAX.  Serving (``dtype`` the activation dtype) keeps the scales float32;
+    ``trainable`` (``dtype`` the parameter dtype) stores every leaf in
+    ``dtype``, with gradients."""
     check_block(blk)
     d, a, m = cfg.d_model, blk.attn, blk.mlp
     kvH, hd = a.num_kv_heads, a.head_dim
@@ -81,7 +90,8 @@ def init_block(generator, cfg: ModelCfg, blk: BlockCfg, repeats: int, *,
     if a.qkv_bias:
         mixer.update(bq=zeros((kvH, G, hd)), bk=zeros((kvH, hd)),
                      bv=zeros((kvH, hd)))
-    ones = lambda: torch.ones(L + (d,), device=device)  # noqa: E731
+    scale_dt = dtype if trainable else torch.float32
+    ones = lambda: torch.ones(L + (d,), dtype=scale_dt, device=device)  # noqa: E731
     tensors = {"mixer_norm": {"scale": ones()}, "mixer": mixer}
     if blk.ffn == "mlp":
         ffn = {"w_up": dense((d, m.d_ff)),
@@ -89,7 +99,7 @@ def init_block(generator, cfg: ModelCfg, blk: BlockCfg, repeats: int, *,
         if m.gated:
             ffn["w_gate"] = dense((d, m.d_ff))
         tensors.update(ffn_norm={"scale": ones()}, ffn=ffn)
-    return Block(tensors)
+    return Block(tensors, trainable)
 
 
 def layer_view(tree, r: int):
@@ -99,6 +109,98 @@ def layer_view(tree, r: int):
         return {name: {k: v[r] for k, v in group.items()}
                 for name, group in tree.named_children()}
     return {k: v[r] for k, v in tree.items()}
+
+
+def _layers(block: Block, repeats: int) -> List[Dict]:
+    """Per-layer views of a stacked block for the training forward:
+    ``unbind`` makes one autograd node per leaf, whose backward stacks the
+    layers' gradients once (indexing would zero-fill a full-size gradient
+    per layer)."""
+    views = [{} for _ in range(repeats)]
+    for name, group in block.named_children():
+        cols = {k: v.unbind(0) for k, v in group.items()}
+        for r in range(repeats):
+            views[r][name] = {k: c[r] for k, c in cols.items()}
+    return views
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+
+
+def block_fwd(params, cfg: ModelCfg, blk: BlockCfg, x, *, positions=None,
+              enc=None):
+    """One layer (``params`` its views); returns (x, aux), aux always of
+    ``ZERO_AUX``'s structure."""
+    check_block(blk)
+    h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
+    x = x + attn.attention_fwd(params["mixer"], blk.attn, h,
+                               positions=positions, enc=enc,
+                               q_chunk=cfg.attn_q_chunk,
+                               use_flash=cfg.use_flash)
+    if blk.ffn is not None:
+        h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
+        x = x + mlp_fwd(params["ffn"], blk.mlp, h)
+    return x, dict(ZERO_AUX)
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"`` (JAX's
+    ``checkpoint_dots``): keep matmul outputs, recompute the rest."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``jax.checkpoint`` as ``torch.utils.checkpoint``: "none" is the
+    identity, "full" saves nothing inside ``fn`` (its inputs only) and
+    recomputes it in the backward pass, "dots" saves matmul outputs."""
+    if mode == "none":
+        return fn
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
+def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,
+              enc=None):
+    """The training forward of a stage: remat'd groups of the pattern's
+    blocks, each block remat'd again inside (JAX's nested remat: the
+    backward pass recomputes each block once), over the stacked layers.
+    JAX's ``_barrier`` serializes FSDP parameter gathers; on one device it
+    is the identity and has no counterpart here, nor has the ``lshard`` of
+    the saved boundaries (``seq_shard_residuals``), a no-op without a
+    mesh."""
+
+    def one_block(block_params, y, blk):
+        return block_fwd(block_params, cfg, blk, y, positions=positions,
+                         enc=enc)
+
+    def group(y, group_params):
+        aux = dict(ZERO_AUX)
+        for i, blk in enumerate(stage.pattern):
+            blk_fn = _remat(functools.partial(one_block, blk=blk), cfg.remat)
+            y, a = blk_fn(group_params[i], y)
+            aux = _add_aux(aux, a)
+        return y, aux
+
+    group = _remat(group, cfg.remat)
+    views = [_layers(b, stage.repeats) for b in params]
+    aux = dict(ZERO_AUX)
+    for r in range(stage.repeats):
+        x, a = group(x, [v[r] for v in views])
+        aux = _add_aux(aux, a)
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Ragged serving step
 
 
 def init_stage_state_paged(cfg: ModelCfg, stage: Stage, batch: int,
