@@ -5,13 +5,13 @@
 Phases (every check asserts; any failure exits non-zero):
 
 1. Card, power limit, torch/CUDA versions; TF32 off for matmul and cuDNN.
-2. Build the CUDA kernels of the serving and training paths from
-   ``src/repro_torch``, one ``nvcc`` per source started together, and print
-   ptxas's register and shared-memory report.
+2. Build the five CUDA kernels from ``src/repro_torch`` (the serving,
+   two-phase decode, training, RMSNorm and matmul kernels), one ``nvcc`` per
+   source started together, and print ptxas's register and spill report.
 3. Each kernel against its plain PyTorch version at full-width shapes.
    Tolerance: f32 outputs rtol = atol = 1e-4; bf16 outputs atol = 2e-2,
-   compared in f32, and for flash_attention also each output row within
-   1e-2 of its norm.
+   compared in f32, and for flash_attention and paged_flash_decode also
+   each output row within 1e-2 of its norm.
    - ragged_paged_flash (qwen2-1.5b: kvH 2, G 6, hd 128; page 16;
      cache_len 2048; a 256-token mixed pack of decode and prefill tokens
      from 8 slots, with unmapped (sentinel) pages and lens == 0 rows), for
@@ -25,6 +25,21 @@ Phases (every check asserts; any failure exits non-zero):
      plain version and ``scaled_dot_product_attention`` (the library
      yardstick, which the port never calls) at the training shape in bf16,
      beside the operation bound.
+   - paged_flash_decode at phase 4's decode tick (8 slots, lens up to
+     2048, one empty slot, sentinel pages), q in {f32, bf16} x pools in
+     {f32, bf16, int8}; CUDA-event times beside the byte bound.
+   - matmul, both accumulation policies, f32 and bf16, at 4096^3 and
+     1000 x 1500 x 700, against its plain version (f32: rtol 1e-4; bf16:
+     rtol 2^-7, one rounding unit; each with an atol of 2^-16 (f32) or
+     2^-12 (bf16) x sqrt(K) x rms|a| x rms|b|); times beside
+     ``torch.matmul`` and the bound (the "hbm" policy's bytes count its C
+     passes).
+   - rmsnorm at the serving pack (256 x 1536) and the training
+     activations (8192 x 1536), f32 and bf16, against its plain version and
+     ``torch.nn.functional.rms_norm`` (f32: 1e-5; bf16: rtol 2^-7); times
+     beside the byte bound.  Then the norm layer's kernel route
+     (``norms.rmsnorm(use_kernel=True)``, which no model path sets, as in
+     JAX) at both shapes: its own launch count.
 4. Full-width qwen2-1.5b (28 layers, seed-0 random weights, bf16
    activations, flash_decode=True) serves 8 requests through ServeEngine —
    two share a 300-token prefix, so prefix hits and copy-on-write run —
@@ -33,9 +48,15 @@ Phases (every check asserts; any failure exits non-zero):
    tick, and the pools never move.  CUDA events around every kernel launch
    give the kernel's device time per tick; a repeat of the bf16 run under
    ``torch.profiler`` gives the device's busy time per tick by kernel.
+   Then the same workload through the two-phase engine (``ragged=False``:
+   batched prefill chunks, then decode ticks through paged_flash_decode),
+   bf16 and int8 pools and a profiled bf16 repeat: the kernel launches
+   exactly once per layer per decode tick.
 5. The kernel route against the gather route at full width in f32: after a
    prefill step, one ragged step of a mixed pack from the same state
-   through each route; logits agree to rtol 1e-3 (atol 1e-3 x max |logit|).
+   through each route; then, for the two-phase path, one decode tick after
+   a (8, 512) prefill chunk, a prefilled slot riding along idle.  Logits
+   agree to rtol 1e-3 (atol 1e-3 x max |logit|).
 6. Full-width qwen2-1.5b training (28 layers, seed-0 random weights, bf16
    activations over float32 parameters and AdamW moments, remat "full",
    use_flash=True) on the repo's train_4k shape (sequence 4096) cut to batch
@@ -51,6 +72,10 @@ Phases (every check asserts; any failure exits non-zero):
 7. The kernel route against the chunked route of training at full width in
    f32, the stage cut to 4 layers, batch 1, sequence 4096: ``loss_fn``
    agrees to rtol 1e-4 and every gradient leaf to atol 1e-3 x its max |g|.
+8. The paper's experiment from ``repro_torch.benchmarks``: the Fig. 4/5
+   matmul sweep (cuBLAS and the matmul kernel, nproc 1 to 64, N =
+   16384/sqrt(nproc), f32) and the 15-row memory-mode table (8192^3 f32),
+   with the matmul kernel's launches counted.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -59,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -82,6 +108,21 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:349",
+    },
+    "paged_flash_decode": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:143",
+    },
+    "rmsnorm": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:20",
+    },
+    "matmul": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul.py:49",
     },
 }
 BF16_PEAK = PEAK_FLOPS[torch.bfloat16]
@@ -151,15 +192,32 @@ def make_pack(kind: str, *, B=8, kvH=2, G=6, hd=128, page=16, cache_len=2048,
 
 
 def kernel_inputs(pack, q_dtype, kv_dtype, device):
+    """A pack's q and pools in the given types on ``device``, int8 pools
+    quantized with their scale pools: (q, kp, vp, *index tensors, ks, vs)."""
     from repro_torch.kernels import ops
 
-    q, kp, vp, ptab, slot, lens = (t.to(device) for t in pack)
+    q, kp, vp, *index = (t.to(device) for t in pack)
     ks = vs = None
     if kv_dtype == torch.int8:
         kp, ks = ops.quantize_kv(kp)
         vp, vs = ops.quantize_kv(vp)
-    return (q.to(q_dtype), kp.to(kv_dtype), vp.to(kv_dtype), ptab, slot,
-            lens, ks, vs)
+    return (q.to(q_dtype), kp.to(kv_dtype), vp.to(kv_dtype), *index, ks, vs)
+
+
+def kv_reached(kp, ks, ptab, row_lens) -> tuple:
+    """(bytes, block-table entries) of the KV the given block-table rows
+    reach: ``row_lens`` maps a row to its longest visible length; each
+    unique pool page counts once, K and V, with its scale rows for int8."""
+    page = kp.shape[1]
+    pages, entries = set(), 0
+    for b, n_len in row_lens.items():
+        n = -(-n_len // page)
+        entries += n
+        pages.update(np.minimum(ptab[b, :n].cpu().numpy(), kp.shape[0] - 1).tolist())
+    page_bytes = page * kp.shape[2] * kp.shape[3] * kp.element_size()
+    if ks is not None:
+        page_bytes += page * kp.shape[2] * 4
+    return 2 * len(pages) * page_bytes, entries
 
 
 def bound(args) -> tuple:
@@ -172,25 +230,16 @@ def bound(args) -> tuple:
     * hd at the peak rate of q's type."""
     q, kp, vp, ptab, slot, lens, ks, vs = args
     T, kvH, G, hd = q.shape
-    page = kp.shape[1]
     lens_c, slot_c = lens.cpu().numpy(), slot.cpu().numpy()
     live = lens_c > 0
     n_live = int(live.sum())
-    pages, entries = set(), 0
-    for b in set(slot_c[live].tolist()):
-        n = -(-int(lens_c[live & (slot_c == b)].max()) // page)
-        entries += n
-        pages.update(np.minimum(ptab[b, :n].cpu().numpy(), kp.shape[0] - 1).tolist())
-    page_bytes = page * kvH * hd * kp.element_size()
-    if ks is not None:
-        page_bytes += page * kvH * 4
+    kv_bytes, entries = kv_reached(kp, ks, ptab, {
+        b: int(lens_c[live & (slot_c == b)].max())
+        for b in set(slot_c[live].tolist())})
     row = kvH * G * hd * q.element_size()
-    nbytes = (2 * len(pages) * page_bytes + n_live * row + T * row
-              + T * 4 + n_live * 4 + entries * 4)
-    flops = 4.0 * float(lens_c.sum()) * G * kvH * hd
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    nbytes = (kv_bytes + n_live * row + T * row + T * 4 + n_live * 4
+              + entries * 4)
+    return roof(nbytes, 4.0 * float(lens_c.sum()) * G * kvH * hd, q.dtype)
 
 
 def check_kernel(card: str) -> dict:
@@ -229,6 +278,232 @@ def check_kernel(card: str) -> dict:
     return {"err": errs[(torch.bfloat16, torch.bfloat16)], "timings": timings}
 
 
+def make_decode_pack(*, B=8, kvH=2, G=6, hd=128, page=16, cache_len=2048,
+                     seed=0):
+    """Phase 4's decode tick as the two-phase engine builds it: one token
+    per slot at lens up to cache_len, slot 7 empty; each slot maps only the
+    pages its lens reach, the rest of its block-table row is the sentinel
+    ``n_pages``.  float32 q and pools and int32 index tensors, on the CPU."""
+    rng = np.random.RandomState(seed)
+    pps = cache_len // page
+    n_pages = B * pps
+    lens = np.asarray([cache_len, 1500, 1101, 701, 421, 201, 65, 0][:B], np.int32)
+    perm = rng.permutation(n_pages)
+    ptab = np.full((B, pps), n_pages, np.int32)
+    for b in range(B):
+        used = -(-int(lens[b]) // page)
+        ptab[b, :used] = perm[b * pps:b * pps + used]
+    normal = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32))
+    return (normal(B, kvH, G, hd), normal(n_pages, page, kvH, hd),
+            normal(n_pages, page, kvH, hd), torch.from_numpy(ptab),
+            torch.from_numpy(lens))
+
+
+def decode_bound(args) -> tuple:
+    """(ms, "bytes" | "operations") of one decode tick: the KV pages and
+    scale rows the live lens reach, the live slots' q rows, the used
+    block-table entries and every slot's lens read once, the whole output
+    written once; FLOPs 4 * sum(lens) * G * kvH * hd."""
+    q, kp, vp, ptab, lens, ks, vs = args
+    B, kvH, G, hd = q.shape
+    lens_c = lens.cpu().numpy()
+    kv_bytes, entries = kv_reached(kp, ks, ptab, {
+        b: int(lens_c[b]) for b in np.nonzero(lens_c > 0)[0]})
+    row = kvH * G * hd * q.element_size()
+    nbytes = (kv_bytes + int((lens_c > 0).sum()) * row + B * row + B * 4
+              + entries * 4)
+    return roof(nbytes, 4.0 * float(lens_c.sum()) * G * kvH * hd, q.dtype)
+
+
+def roof(nbytes, flops, dtype) -> tuple:
+    """The larger of bytes over the HBM rate and FLOPs over the type's
+    peak, in ms, and which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# bf16 outputs of the attention kernels: each output row (hd values) within
+# this share of its norm, about 2.5 bf16 rounding units (2^-8)
+BF16_ROW_RTOL = 1e-2
+
+
+def row_rel_err(got, want) -> float:
+    """Largest |got - want| / |want| over the output rows (the last axis,
+    hd values), both taken in float32; an all-zero row of both counts 0."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    return float((d / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def check_decode(card: str) -> dict:
+    """Kernel 2 against its plain version at phase 4's decode tick, every
+    (q, pool) type pair, then CUDA-event times at bf16.  A bf16 output is
+    held twice: each element to atol 2e-2, and each output row (one slot,
+    KV head and query head) to BF16_ROW_RTOL of its norm.  A slot of length
+    L averages about L/e keys, so |o| is near 0.036 in the 2048-token slot:
+    only the row bound sees an error in proportion to it."""
+    from repro_torch.kernels import paged_flash_decode as pfd
+
+    dev = torch.device("cuda")
+    pack = make_decode_pack()
+    errs = {}
+    for q_dt in (torch.float32, torch.bfloat16):
+        for kv_dt in (torch.float32, torch.bfloat16, torch.int8):
+            q, kp, vp, ptab, lens, ks, vs = kernel_inputs(pack, q_dt, kv_dt, dev)
+            got = pfd.paged_flash_decode(q, kp, vp, ptab, lens, ks=ks, vs=vs)
+            torch.cuda.synchronize()
+            want = pfd.paged_flash_decode_ref(q, kp, vp, ptab, lens, ks=ks, vs=vs)
+            tol = (dict(rtol=1e-4, atol=1e-4) if q_dt == torch.float32
+                   else dict(rtol=0.0, atol=2e-2))
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            assert bool((got[lens == 0] == 0).all()), "lens == 0 slots must be zeros"
+            err = float((got.float() - want.float()).abs().max())
+            rel = row_rel_err(got, want)
+            if q_dt == torch.bfloat16:
+                assert rel <= BF16_ROW_RTOL, (kv_dt, rel)
+                tol = {**tol, "row_rtol": BF16_ROW_RTOL}
+            errs[(q_dt, kv_dt)] = err
+            live = want[lens > 0].float().abs()
+            print(f"paged_flash_decode vs plain: q {q_dt} pools {kv_dt}: max "
+                  f"|err| {err:.3e}, max row |err| / |ref| {rel:.3e}, median "
+                  f"|ref| {float(live.median()):.3e} (tol {tol})")
+    args = kernel_inputs(pack, torch.bfloat16, torch.bfloat16, dev)
+    ms = cuda_ms(lambda: pfd.paged_flash_decode(*args[:5]))
+    plain = cuda_ms(lambda: pfd.paged_flash_decode_ref(*args[:5]), iters=10)
+    b_ms, b_by = decode_bound(args)
+    print(f"paged_flash_decode decode tick (B=8, lens up to 2048, bf16 q and "
+          f"pools) on {card}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}), share of bound {b_ms / ms:.4f}; library "
+          f"call: none")
+    return dict(err=errs[(torch.bfloat16, torch.bfloat16)], ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def matmul_bound(M, K, N, dtype, block, accum) -> tuple:
+    """``matmul.policy_bytes`` over the HBM rate or 2 M N K FLOPs over the
+    peak of the inputs' type, whichever is larger."""
+    from repro_torch.kernels import matmul as mm
+
+    return roof(mm.policy_bytes(M, K, N, dtype, block, accum),
+                2.0 * M * N * K, dtype)
+
+
+def check_matmul(card: str) -> dict:
+    """Kernel 5 against its plain version and torch.matmul (TF32 off), both
+    policies, float32 and bfloat16, at 4096^3 (a sweep point) and a shape
+    that needs padding on the TPU (1000 x 1500 x 700).  Tolerance: float32
+    rtol 1e-4, bfloat16 one bf16 rounding unit (rtol 2^-7: both sides round
+    one float32 sum), each with an atol that scales with sqrt(K) x rms|a| x
+    rms|b|: 2^-16 (float32) and 2^-12 (bfloat16) of it."""
+    from repro_torch.kernels import matmul as mm
+
+    out = {}
+    block = (256, 256, 256)
+    for M, K, N in ((4096, 4096, 4096), (1000, 1500, 700)):
+        g = torch.Generator("cuda").manual_seed(M + K + N)
+        a32 = torch.randn((M, K), generator=g, device="cuda")
+        b32 = torch.randn((K, N), generator=g, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = a32.to(dt), b32.to(dt)
+            spread = math.sqrt(K) * float(a.float().pow(2).mean().sqrt()) * float(
+                b.float().pow(2).mean().sqrt())
+            tol = (dict(rtol=1e-4, atol=2 ** -16 * spread) if dt == torch.float32
+                   else dict(rtol=2 ** -7, atol=2 ** -12 * spread))
+            want = mm.matmul_ref(a, b)
+            for accum in mm.ACCUMS:
+                got = mm.matmul(a, b, block=block, accum=accum)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+                err = float((got.float() - want.float()).abs().max())
+                ms = cuda_ms(lambda: mm.matmul(a, b, block=block, accum=accum),
+                             iters=5, warmup=1)
+                plain = cuda_ms(lambda: mm.matmul_ref(a, b), iters=5, warmup=1)
+                lib = cuda_ms(lambda: torch.matmul(a, b), iters=5, warmup=1)
+                b_ms, b_by = matmul_bound(M, K, N, dt, block, accum)
+                passes = mm.k_passes(K, block, accum)
+                moved = mm.policy_bytes(M, K, N, dt, block, accum)
+                print(f"matmul {M}x{K}x{N} {dt} accum {accum} ({passes} C "
+                      f"passes, {moved / 1e9:.3f} GB to move) on {card}: max "
+                      f"|err| {err:.3e} (tol "
+                      f"rtol {tol['rtol']:.3g}, atol {tol['atol']:.3g}); kernel "
+                      f"{ms:.4f} ms = {2e-9 * M * N * K / ms:.1f} TFLOP/s, plain "
+                      f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
+                      f"{b_ms:.5f} ms ({b_by}), share of bound {b_ms / ms:.4f}, "
+                      f"kernel / library {ms / lib:.2f}")
+                out[(M, dt, accum)] = dict(err=err, ms=ms, plain_ms=plain,
+                                           bound_ms=b_ms, bound_by=b_by,
+                                           library_ms=lib)
+            del a, b, want
+        del a32, b32
+    return out
+
+
+def check_rmsnorm(card: str) -> dict:
+    """Kernel 4 against its plain version and torch.nn.functional.rms_norm
+    at the serving pack (256 x 1536) and the training activations (8192 x
+    1536), float32 and bfloat16.  Tolerance: float32 rtol = atol = 1e-5;
+    bfloat16 one rounding unit (rtol 2^-7) with atol 1e-5.  The library
+    call gets the scale in x's type (its fused path); the kernel is held
+    against it with that scale rounded the same way."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    out = {}
+    for R in (256, 8192):
+        g = torch.Generator("cuda").manual_seed(R)
+        x32 = torch.randn((R, 1536), generator=g, device="cuda")
+        scale = torch.randn(1536, generator=g, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            tol = (dict(rtol=1e-5, atol=1e-5) if dt == torch.float32
+                   else dict(rtol=2 ** -7, atol=1e-5))
+            got = rn.rmsnorm(x, scale)
+            torch.cuda.synchronize()
+            want = rn.rmsnorm_ref(x, scale)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            s_lib = scale.to(dt)
+            lib_fn = lambda: torch.nn.functional.rms_norm(  # noqa: E731
+                x, (1536,), s_lib, 1e-6)
+            torch.testing.assert_close(rn.rmsnorm(x, s_lib.float()).float(),
+                                       lib_fn().float(), **tol)
+            err = float((got.float() - want.float()).abs().max())
+            ms = cuda_ms(lambda: rn.rmsnorm(x, scale), iters=50)
+            plain = cuda_ms(lambda: rn.rmsnorm_ref(x, scale), iters=20)
+            lib = cuda_ms(lib_fn, iters=50)
+            nbytes = 2 * x.numel() * x.element_size() + 1536 * 4
+            b_ms, b_by = roof(nbytes, 4.0 * x.numel(), dt)
+            print(f"rmsnorm ({R}, 1536) {dt} on {card}: max |err| {err:.3e} "
+                  f"(tol {tol}); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"F.rms_norm {lib:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                  f"share of bound {b_ms / ms:.4f}")
+            out[(R, dt)] = dict(err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib)
+    return out
+
+
+def rmsnorm_route(card: str) -> int:
+    """The norm layer's kernel route (``norms.rmsnorm(use_kernel=True)``,
+    which no model path sets, as in JAX) at the serving pack and the
+    training activations in bf16: launches counted from 0, the result
+    equal to the plain route."""
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models.layers import norms
+
+    params = {"scale": torch.ones(1536, device="cuda")}
+    xs = [torch.randn((R, 1536), device="cuda").bfloat16() for R in (256, 8192)]
+    rn.launches = 0
+    outs = [norms.rmsnorm(params, x, 1e-6, use_kernel=True) for x in xs]
+    torch.cuda.synchronize()
+    launches = rn.launches
+    for x, o in zip(xs, outs):
+        torch.testing.assert_close(o.float(), norms.rmsnorm(params, x, 1e-6).float(),
+                                   rtol=2 ** -7, atol=1e-5)
+    assert launches == len(xs), launches
+    print(f"norm layer kernel route on {card}: {launches} launches, equal to "
+          f"the plain route")
+    return launches
+
+
 def flash_inputs(BH, BKV, S, hd, dtype, seed=0):
     g = torch.Generator("cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -244,25 +519,12 @@ def flash_bound(q, k, window=None) -> tuple:
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     W = S if window is None else min(window, S)
     pairs = W * S - W * (W - 1) // 2
-    flops = 4.0 * hd * pairs * BH
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-FLASH_BF16_ROW_RTOL = 1e-2
-
-
-def row_rel_err(got, want) -> float:
-    """Largest |got - want| / |want| over the output rows (one query row of
-    one head, hd values), both taken in float32."""
-    d = (got.float() - want.float()).norm(dim=-1)
-    return float((d / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+    return roof(nbytes, 4.0 * hd * pairs * BH, q.dtype)
 
 
 def check_flash(card: str) -> dict:
     """The kernel against its plain version.  bf16 is held twice: each
-    element to atol 2e-2, and each output row to FLASH_BF16_ROW_RTOL of the
+    element to atol 2e-2, and each output row to BF16_ROW_RTOL of the
     row's norm — about 2.5 bf16 rounding units (2^-8).  The row bound is the
     tight one where most of the work is: a long causal row averages about
     row/e keys, so its values are small (|o| ~ 0.03 at row 4096) and a fixed
@@ -288,8 +550,8 @@ def check_flash(card: str) -> dict:
         err = float((got.float() - want.float()).abs().max())
         rel = row_rel_err(got, want)
         if dt == torch.bfloat16:
-            assert rel <= FLASH_BF16_ROW_RTOL, (name, rel)
-            tol = {**tol, "row_rtol": FLASH_BF16_ROW_RTOL}
+            assert rel <= BF16_ROW_RTOL, (name, rel)
+            tol = {**tol, "row_rtol": BF16_ROW_RTOL}
         errs[(name, dt)] = err
         print(f"flash_attention vs plain: {name} {tuple(q.shape)} over "
               f"{tuple(k.shape)} {dt} window {window}: max |err| {err:.3e}, "
@@ -333,28 +595,37 @@ def _device_us(evt) -> float:
     return evt.self_cuda_time_total if t is None else t
 
 
-def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False) -> dict:
-    """Serve the phase-4 workload once.  CUDA events around every kernel
-    launch sum the kernel's device time; with ``profiled`` the run is traced
-    by ``torch.profiler`` (CUDA activity only) and the device time of every
-    kernel it ran is summed too."""
+def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False,
+               ragged: bool = True) -> dict:
+    """Serve the phase-4 workload once, through the ragged engine or, with
+    ``ragged=False``, the two-phase engine (prefill chunks, then decode
+    ticks through the paged flash-decode kernel).  CUDA events around every
+    kernel launch sum the kernel's device time; with ``profiled`` the run is
+    traced by ``torch.profiler`` (CUDA activity only) and the device time
+    of every kernel it ran is summed too."""
+    from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.kernels import ragged_paged_flash as rpf
     from repro_torch.serve.engine import ServeEngine
 
     rng = np.random.RandomState(1)
     eng = ServeEngine(params, cfg, batch_size=8, cache_len=2048, page_size=16,
                       prefill_chunk=128, token_budget=256, flash_decode=True,
-                      kv_dtype=kv_dtype, device=params.device)
-    step = eng._ragged_step
+                      kv_dtype=kv_dtype, ragged=ragged, device=params.device)
+    kmod, kname = (rpf, "ragged_paged_flash") if ragged else (pfd, "paged_flash_decode")
+    steps = ("_ragged_step",) if ragged else ("_chunk_step", "_decode_step")
 
-    def checked_step(*a):
-        logits, state = step(*a)
-        assert bool(torch.isfinite(logits).all()), "non-finite logits"
-        return logits, state
+    def checked(step):
+        def run(*a):
+            logits, state = step(*a)
+            assert logits is None or bool(torch.isfinite(logits).all()), \
+                "non-finite logits"
+            return logits, state
+        return run
 
-    eng._ragged_step = checked_step
+    for name in steps:
+        setattr(eng, name, checked(getattr(eng, name)))
     spans = []  # (start, end) CUDA events around each kernel launch
-    kernel = rpf.ragged_paged_flash
+    kernel = getattr(kmod, kname)
 
     def timed_kernel(*a, **kw):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -374,7 +645,7 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False) -> d
         else contextlib.nullcontext())
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    rpf.ragged_paged_flash = timed_kernel
+    setattr(kmod, kname, timed_kernel)
     try:
         with prof:
             t0 = time.perf_counter()
@@ -387,12 +658,13 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False) -> d
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        rpf.ragged_paged_flash = kernel
+        setattr(kmod, kname, kernel)
     st = eng.stats
     assert all(len(results[h]) == 32 for h in handles), \
         {int(h): len(results[h]) for h in handles}
     assert st["prefix_hits"] >= 1 and st["cow_copies"] >= 1, st
-    assert st["kernel_launches"] == cfg.n_layers * st["ragged_ticks"], st
+    kernel_ticks = st["ragged_ticks"] if ragged else st["decode_ticks"]
+    assert st["kernel_launches"] == cfg.n_layers * kernel_ticks, st
     assert len(spans) == st["kernel_launches"], (len(spans), st)
     assert [t.data_ptr() for t in eng.pool_tensors()] == ptrs, "pools moved"
     assert eng.pool.pages_in_use == 0 and eng.reclaimable_pages == eng.n_pages
@@ -401,18 +673,21 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False) -> d
     kernel_ms = sum(a.elapsed_time(b) for a, b in spans)
     peak = torch.cuda.max_memory_allocated() / 2**30
     tag = "profiled repeat, " if profiled else ""
-    print(f"serve qwen2-1.5b FULL ({cfg.n_layers} layers), pools {kv_dtype}, "
-          f"{tag}on {card}: {len(handles)} requests, {toks} tokens in "
-          f"{wall:.3f} s = {toks / wall:.1f} tokens/s, {st['ragged_ticks']} "
-          f"ticks, {1e3 * wall / ticks:.2f} ms/tick, peak memory {peak:.2f} "
-          f"GiB, prefix hits {st['prefix_hits']}, COW copies "
-          f"{st['cow_copies']}, kernel launches {st['kernel_launches']}")
-    print(f"  attention kernel in this run (CUDA events): {kernel_ms:.3f} ms "
+    kind = ("ragged" if ragged else
+            f"two-phase ({st['chunk_ticks']} prefill, {st['decode_ticks']} decode ticks)")
+    print(f"serve qwen2-1.5b FULL ({cfg.n_layers} layers), {kind}, pools "
+          f"{kv_dtype}, {tag}on {card}: {len(handles)} requests, {toks} tokens "
+          f"in {wall:.3f} s = {toks / wall:.1f} tokens/s, {ticks} ticks, "
+          f"{1e3 * wall / ticks:.2f} ms/tick, peak memory {peak:.2f} GiB, "
+          f"prefix hits {st['prefix_hits']}, COW copies {st['cow_copies']}, "
+          f"kernel launches {st['kernel_launches']}")
+    print(f"  {kname} kernel in this run (CUDA events): {kernel_ms:.3f} ms "
           f"over {len(spans)} launches = {kernel_ms / len(spans):.4f} ms per "
           f"launch, {kernel_ms / ticks:.3f} ms per tick, "
           f"{kernel_ms / (1e3 * wall):.3f} of the wall time")
     out = dict(wall_ms=1e3 * wall, ticks=ticks, kernel_ms=kernel_ms,
-               busy_ms=None)
+               busy_ms=None, launches=st["kernel_launches"],
+               decode_ticks=st["decode_ticks"])
     if profiled:
         by_name = {}
         for e in prof.key_averages():
@@ -430,6 +705,18 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False) -> d
             for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
                 print(f"    {ms:9.3f} ms  {ms / busy:.3f}  {name[:110]}")
     return out
+
+
+def print_idle_share(label: str, first: dict, traced: dict, card: str) -> None:
+    """Device busy time per tick of a profiled repeat against the wall time
+    per tick of the first, unprofiled run."""
+    if traced["busy_ms"] is None:
+        return
+    busy_tick = traced["busy_ms"] / traced["ticks"]
+    wall_tick = first["wall_ms"] / first["ticks"]
+    print(f"{label} on {card}: device busy {busy_tick:.3f} ms per tick "
+          f"(profiled repeat) against {wall_tick:.3f} ms per tick of wall "
+          f"time (first run): idle share {1 - busy_tick / wall_tick:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -497,6 +784,75 @@ def route_logits(params, cfg, flashes, *, B, T, cache_len, page, seed):
         rng = np.random.RandomState(seed + 1)  # the same tokens every run
         out.append(step(copy, mixed, flash))
     return out
+
+
+def paged_route_logits(params, cfg, flashes, *, B, cache_len, page, C, seed):
+    """The two-phase path's routes: one (B, C) prefill chunk of a different
+    length per slot from a fresh state (gather route), then ONE decode tick
+    — every slot but the last decodes, the last rides along invalid with
+    its fill count and pages, as a freed slot does — from that same state
+    once per entry of ``flashes``
+    (each on its own copy of the state).  Returns each run's logits of the
+    decoding slots, in order."""
+    from repro_torch.models import model as M
+
+    dev = params.device
+    pps = cache_len // page
+    n_pages = B * pps
+    state = M.init_paged_state(params, cfg, B, cache_len, page_size=page,
+                               n_pages=n_pages)
+    rows = torch.arange(n_pages, dtype=torch.int32, device=dev).reshape(B, pps)
+    tmpl = {"layers": [[{k: v.clone() for k, v in c.items()} for c in ss]
+                       for ss in state["layers"]]}
+    M.reset_paged_slots(cfg, state, tmpl, torch.ones(B, dtype=torch.bool, device=dev),
+                        rows, torch.zeros(B, dtype=torch.int32, device=dev))
+    rng = np.random.RandomState(seed)
+    fill = [C - 37 * b for b in range(B)]
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    tokens = rng.randint(0, cfg.vocab_size, (B, C)).astype(np.int32)
+    q_pos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+    valid = np.arange(C)[None, :] < np.asarray(fill)[:, None]
+    with torch.no_grad():
+        M.paged_step(params, cfg, state, t(tokens), t(q_pos), t(valid),
+                     with_logits=False)
+    tok = rng.randint(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+    pos = np.asarray(fill, np.int32)[:, None]
+    live = (np.arange(B) < B - 1)[:, None]
+    out = []
+    for flash in flashes:
+        copy = {"layers": [[{k: v.clone() for k, v in c.items()} for c in ss]
+                           for ss in state["layers"]]}
+        with torch.no_grad():
+            logits, _ = M.paged_step(params, cfg, copy, t(tok), t(pos), t(live),
+                                     flash_decode=flash)
+        out.append(logits[:B - 1, 0].float().cpu())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. the paper's matmul sweep and memory-mode table
+
+
+def sweep_phase(card: str) -> int:
+    """Figs. 4/5 (both engines, n0 = 16384 float32, nproc 1 to 64) and the
+    memory-mode table (8192^3 float32) from ``repro_torch.benchmarks``,
+    with the matmul kernel's launches counted from 0.  Every GFLOP/s must
+    be positive and finite; returns the launches."""
+    from repro_torch.benchmarks import run as bench
+    from repro_torch.kernels import matmul as mm
+
+    mm.launches = 0
+    rows = [r for mod in bench.MODULES for r in mod.rows(device="cuda")]
+    launches = mm.launches
+    print(f"the paper's sweep on {card} (CSV name,us_per_call,derived):")
+    print("name,us_per_call,derived")
+    for name, us, derived in rows:
+        print(f"{name},{us:.1f},{derived}")
+        gf = float(derived.split("GF/s")[0])
+        assert math.isfinite(gf) and gf > 0, (name, derived)
+    assert launches > 0, "the sweep never launched the matmul kernel"
+    print(f"matmul kernel launches in the sweep: {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -673,6 +1029,7 @@ def main() -> int:
         return 1
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.kernels import ragged_paged_flash as rpf
     from repro_torch.models import model as M
 
@@ -693,7 +1050,11 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     kres = check_kernel(card)
+    dres = check_decode(card)
     fres = check_flash(card)
+    mres = check_matmul(card)
+    nres = check_rmsnorm(card)
+    norm_launches = rmsnorm_route(card)
 
     cfg = get_config("qwen2-1.5b")  # FULL, bf16 activations
     params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
@@ -703,13 +1064,17 @@ def main() -> int:
     launches = rpf.launches
     assert launches > 0, "the serving path never launched the kernel"
     serve_full(params, cfg, "int8", card)
-    traced = serve_full(params, cfg, None, card, profiled=True)
-    if traced["busy_ms"] is not None:
-        busy_tick = traced["busy_ms"] / traced["ticks"]
-        wall_tick = plain["wall_ms"] / plain["ticks"]
-        print(f"bf16 pools on {card}: device busy {busy_tick:.3f} ms per tick "
-              f"(profiled repeat) against {wall_tick:.3f} ms per tick of wall "
-              f"time (first run): idle share {1 - busy_tick / wall_tick:.3f}")
+    print_idle_share("ragged, bf16 pools", plain,
+                     serve_full(params, cfg, None, card, profiled=True), card)
+    pfd.launches = 0  # the two-phase path's own count
+    two = serve_full(params, cfg, None, card, ragged=False)
+    decode_launches = pfd.launches
+    assert decode_launches == cfg.n_layers * two["decode_ticks"] > 0, \
+        (decode_launches, two)
+    serve_full(params, cfg, "int8", card, ragged=False)
+    print_idle_share("two-phase, bf16 pools", two,
+                     serve_full(params, cfg, None, card, profiled=True,
+                                ragged=False), card)
     del params
     torch.cuda.empty_cache()
 
@@ -722,24 +1087,38 @@ def main() -> int:
     torch.testing.assert_close(lf, lg, rtol=1e-3, atol=1e-3 * scale)
     print(f"kernel route vs gather route, full width f32: max |diff| "
           f"{float((lf - lg).abs().max()):.3e} (max |logit| {scale:.2f})")
+    df, dg = paged_route_logits(p32, cfg32, (True, False), B=8,
+                                cache_len=2048, page=16, C=512, seed=3)
+    scale = float(dg.abs().max())
+    torch.testing.assert_close(df, dg, rtol=1e-3, atol=1e-3 * scale)
+    print(f"two-phase decode tick, kernel route vs gather route, full width "
+          f"f32: max |diff| {float((df - dg).abs().max()):.3e} (max |logit| "
+          f"{scale:.2f})")
     del p32
     torch.cuda.empty_cache()
 
     tres = train_full(card)
     torch.cuda.empty_cache()
     train_routes(card)
+    torch.cuda.empty_cache()
+    sweep_launches = sweep_phase(card)
 
     t = kres["timings"]["mixed"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def entry(name, launches, res):
+        return {"name": name, **KERNELS[name], "launches": launches,
+                "max_abs_err": res["err"], **{k: res[k] for k in keys}}
+
     print(card)
     print(json.dumps({"kernels": [
-        {"name": "ragged_paged_flash", **KERNELS["ragged_paged_flash"],
-         "launches": launches, "max_abs_err": kres["err"], "ms": t["ms"],
-         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-         "bound_by": t["bound_by"], "library_ms": None},
-        {"name": "flash_attention", **KERNELS["flash_attention"],
-         "launches": tres["launches"], "max_abs_err": fres["err"],
-         **{k: fres[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")}}]}))
+        entry("ragged_paged_flash", launches, {**t, "err": kres["err"],
+                                               "library_ms": None}),
+        entry("flash_attention", tres["launches"], fres),
+        entry("paged_flash_decode", decode_launches, dres),
+        entry("rmsnorm", norm_launches, nres[(8192, torch.bfloat16)]),
+        entry("matmul", sweep_launches,
+              mres[(4096, torch.float32, "vmem")])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

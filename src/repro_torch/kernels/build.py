@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the root
-of the checkout, at first use; the hash covers the source and the flags, so
-an edited source builds anew and an unchanged one is reused.
+of the checkout, at first use; the hash covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header builds
+anew and an unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per source, all at once.  The library is
 loaded with ``ctypes``.  Nothing here runs at import time: this module is
 imported on machines that have no CUDA toolkit, where only the plain
@@ -37,7 +38,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

@@ -1,9 +1,10 @@
 """Public kernel entry points and the paged pool's int8 and page helpers.
 
-Counterpart of ``repro.kernels.ops`` for the ported slices: the ragged paged
-attention entry point, the causal flash attention entry point and its
-differentiable grouped-layout form (``flash_attention_grouped``, the
-training path's attention), the symmetric int8 KV quantization of the
+Counterpart of ``repro.kernels.ops``: the entry points of the five kernels
+(ragged paged attention, paged flash-decode attention, causal flash
+attention and its differentiable grouped-layout form
+``flash_attention_grouped``, the training path's attention; the tiled
+matmul; RMSNorm), the symmetric int8 KV quantization of the
 serving pools (one float32 scale per pool entry per KV head, absmax over the
 head dim), the quantize-on-write scatter, and the copy-on-write page copy.
 
@@ -18,7 +19,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import paged_flash_decode as _pfd
 from repro_torch.kernels import ragged_paged_flash as _rpf
+from repro_torch.kernels import rmsnorm as _rn
+
+
+def matmul(a, b, *, block=(256, 256, 256), accum="vmem", out_dtype=None):
+    """C = A·B, float32 accumulation; ``accum`` "vmem" keeps the
+    accumulator on chip, "hbm" revisits a float32 C in device memory once
+    per ``block[1]``-wide K slice.  CUDA tensors launch the hand-written
+    kernel (``kernels/csrc/matmul.cu``), CPU tensors run its plain PyTorch
+    version."""
+    return _mm.matmul(a, b, block=block, accum=accum, out_dtype=out_dtype)
 
 
 def flash_attention(q, k, v, *, bq=128, bk=128, window=None):
@@ -29,6 +42,17 @@ def flash_attention(q, k, v, *, bq=128, bk=128, window=None):
     return _fa.flash_attention(q, k, v, bq=bq, bk=bk, window=window)
 
 
+def paged_flash_decode(q, kp, vp, ptab, lens, ks=None, vs=None):
+    """Decode-tick attention, one query token per slot, over a
+    block-table-paged KV pool.  q: (B,kvH,G,hd); kp/vp:
+    (n_pages,page,kvH,hd); ptab: (B,pps) int32; lens: (B,) int32 ->
+    (B,kvH,G,hd).  int8 pools pass their scale pools ``ks``/``vs``.  CUDA
+    tensors launch the hand-written kernel
+    (``kernels/csrc/paged_flash_decode.cu``), CPU tensors run its plain
+    PyTorch version."""
+    return _pfd.paged_flash_decode(q, kp, vp, ptab, lens, ks=ks, vs=vs)
+
+
 def ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
     """Ragged-pack serving attention over a block-table-paged KV pool.
     q: (T,kvH,G,hd); slot/lens: (T,) int32; kp/vp: (n_pages,page,kvH,hd);
@@ -37,6 +61,14 @@ def ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
     hand-written kernel (``kernels/csrc/ragged_paged_flash.cu``), CPU
     tensors run its plain PyTorch version."""
     return _rpf.ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=ks, vs=vs)
+
+
+def rmsnorm(x, scale, *, eps=1e-6):
+    """Row RMSNorm of x (..., D) with a float32 scale (D,), float32
+    statistics, in x's dtype.  CUDA tensors launch the hand-written kernel
+    (``kernels/csrc/rmsnorm.cu``), CPU tensors run its plain PyTorch
+    version."""
+    return _rn.rmsnorm(x, scale, eps=eps)
 
 
 def _flash_grouped_local(q, k, v, window):

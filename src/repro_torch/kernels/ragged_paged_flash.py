@@ -52,11 +52,15 @@ def ragged_paged_flash_ref(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
     return torch.einsum("tkgs,tskd->tkgd", p, v).to(q.dtype)
 
 
-def _check(q, kp, vp, ptab, slot, lens, ks, vs):
+def check_pools(q, kp, vp, ks, vs) -> None:
+    """The query and pool checks both paged kernels share (this one and
+    ``paged_flash_decode``): q (rows, kvH, G, hd) float32/bfloat16 over
+    pools (n_pages, page, kvH, hd) float32/bfloat16/int8, float32 scale
+    pools for int8 pools only."""
     if q.ndim != 4 or kp.ndim != 4:
-        raise ValueError(f"q must be (T,kvH,G,hd) and kp (n_pages,page,kvH,hd);"
+        raise ValueError(f"q must be (rows,kvH,G,hd) and kp (n_pages,page,kvH,hd);"
                          f" got {tuple(q.shape)} and {tuple(kp.shape)}")
-    T, kvH, G, hd = q.shape
+    _, kvH, G, hd = q.shape
     if kp.shape != vp.shape or kp.shape[2:] != (kvH, hd):
         raise ValueError(f"pool shapes {tuple(kp.shape)}/{tuple(vp.shape)} "
                          f"do not match q {tuple(q.shape)}")
@@ -71,20 +75,38 @@ def _check(q, kp, vp, ptab, slot, lens, ks, vs):
                            or ks.dtype != torch.float32
                            or vs.dtype != torch.float32):
         raise ValueError("scale pools must be float32 (n_pages, page, kvH)")
-    if ptab.ndim != 2 or slot.shape != (T,) or lens.shape != (T,):
-        raise ValueError("ptab must be (B, pps); slot and lens (T,)")
-    for name, t in (("ptab", ptab), ("slot", slot), ("lens", lens)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
-    tensors = [q, kp, vp, ptab, slot, lens] + ([ks, vs] if ks is not None else [])
-    if any(t.device != q.device for t in tensors):
+
+
+def check_same_device_contiguous(tensors) -> None:
+    """Every given tensor (None entries skipped) on one device, contiguous."""
+    tensors = [t for t in tensors if t is not None]
+    if any(t.device != tensors[0].device for t in tensors):
         raise ValueError("all inputs must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
 
 
+def check_kernel_fits(q, kp) -> None:
+    """Refuse shapes the kernel's shared memory cannot hold."""
+    _, _, G, hd = q.shape
+    if hd > _MAX_HEAD_DIM or _smem_bytes(G, hd, kp.shape[1]) > _MAX_SMEM:
+        raise ValueError(f"head_dim {hd} / page {kp.shape[1]} / G {G} exceed "
+                         f"the kernel's shared memory")
+
+
+def _check(q, kp, vp, ptab, slot, lens, ks, vs):
+    check_pools(q, kp, vp, ks, vs)
+    T = q.shape[0]
+    if ptab.ndim != 2 or slot.shape != (T,) or lens.shape != (T,):
+        raise ValueError("ptab must be (B, pps); slot and lens (T,)")
+    for name, t in (("ptab", ptab), ("slot", slot), ("lens", lens)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    check_same_device_contiguous([q, kp, vp, ptab, slot, lens, ks, vs])
+
+
 def _smem_bytes(G: int, hd: int, page: int) -> int:
-    # must match the layout in csrc/ragged_paged_flash.cu
+    # must match paged::smem_bytes in csrc/paged_walk.cuh
     return 4 * (2 * G * hd + 2 * page * hd + G * page + 3 * G)
 
 
@@ -116,11 +138,9 @@ def ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
         return ragged_paged_flash_ref(q, kp, vp, ptab, slot, lens, ks, vs)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    check_kernel_fits(q, kp)
     T, kvH, G, hd = q.shape
     npages, page = kp.shape[0], kp.shape[1]
-    if hd > _MAX_HEAD_DIM or _smem_bytes(G, hd, page) > _MAX_SMEM:
-        raise ValueError(f"head_dim {hd} / page {page} / G {G} exceed the "
-                         f"kernel's shared memory")
     out = torch.empty_like(q)
     if T == 0:
         return out

@@ -1,0 +1,79 @@
+"""Row RMSNorm: the CUDA kernel's wrapper and its plain PyTorch version.
+
+Replaces ``repro/kernels/rmsnorm.py:rmsnorm`` (the Pallas TPU kernel):
+``x * rsqrt(mean(x²) + eps) * scale`` over the last axis, float32
+statistics, the output in x's dtype.  ``rmsnorm`` launches the hand-written
+kernel in ``csrc/rmsnorm.cu`` for CUDA tensors and runs ``rmsnorm_ref``
+only for CPU tensors; there is no fallback from one to the other.
+``launches`` counts kernel launches (the plain version does not count).
+The TPU kernel's ``block_rows`` only tiles its grid (rows are padded to
+it), which changes no result; the CUDA kernel takes one row per warp.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# kernel launches since the last reset (the caller sets it back to 0)
+launches = 0
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rmsnorm_ref(x, scale, eps: float = 1e-6):
+    """Plain PyTorch RMSNorm — the JAX package's
+    ``kernels/ref.py:rmsnorm_ref``."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _check(x, scale):
+    if x.ndim < 1 or scale.shape != x.shape[-1:]:
+        raise ValueError(f"x must be (..., D) and scale (D,); got "
+                         f"{tuple(x.shape)} and {tuple(scale.shape)}")
+    if x.dtype not in _CODES:
+        raise TypeError(f"x dtype {x.dtype} not in {list(_CODES)}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"scale must be float32, got {scale.dtype}")
+    if scale.device != x.device:
+        raise ValueError("x and scale must be on one device")
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("x and scale must be contiguous")
+
+
+def _lib():
+    from repro_torch.kernels import build
+
+    fn = build.load("rmsnorm").rmsnorm
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    """x: (..., D) float32/bfloat16; scale: (D,) float32.  Returns x's shape
+    and dtype."""
+    global launches
+    _check(x, scale)
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    D = x.shape[-1]
+    R = x.numel() // max(D, 1)
+    out = torch.empty_like(x)
+    if R == 0 or D == 0:
+        return out
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(_CODES[x.dtype], x.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), R, D, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm launch failed: CUDA error {err}")
+    launches += 1
+    return out

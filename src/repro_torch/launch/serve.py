@@ -1,12 +1,15 @@
 """Serving launcher for the PyTorch port: batched requests through the
-ragged token-budget engine, with the JAX launcher's flags plus
-``--device`` (``cuda`` by default; ``--device cpu`` runs the plain PyTorch
-versions of the kernels).  Like the JAX launcher it serves the smoke
-config of ``--arch`` from seed-0 random weights.  Flags whose feature is
-not ported yet (``--engine chunked|reference``, the reordering schedulers,
-``--interactive-every``) raise ``NotImplementedError`` naming the slice.
+ragged token-budget engine (``--engine ragged``) or the two-phase engine
+(``--engine chunked``: batched prefill chunks, then decode ticks), with the
+JAX launcher's flags plus ``--device`` (``cuda`` by default; ``--device
+cpu`` runs the plain PyTorch versions of the kernels).  Like the JAX
+launcher it serves the smoke config of ``--arch`` from seed-0 random
+weights.  Flags whose feature is not ported yet (``--engine reference``,
+the reordering schedulers, ``--interactive-every``) raise
+``NotImplementedError`` naming the slice.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine chunked --flash-decode
 """
 import argparse
 
@@ -40,8 +43,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=None,
                     help="per-request sampling seed base")
     ap.add_argument("--flash-decode", action="store_true",
-                    help="route attention through the ragged paged CUDA "
-                         "kernel")
+                    help="route attention through the paged CUDA kernels "
+                         "(the ragged step's; the chunked engine's decode "
+                         "ticks)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable the refcounted prefix cache / COW pages")
     ap.add_argument("--kv-dtype", choices=("float32", "bfloat16", "int8"),
@@ -58,10 +62,10 @@ def main(argv=None):
                     help="torch device to serve on (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.engine != "ragged":
+    if args.engine == "reference":
         raise NotImplementedError(
-            f"--engine {args.engine} is not ported yet: it comes with the "
-            "two-phase slice of the PyTorch port")
+            "--engine reference is not ported yet: the lock-step "
+            "ReferenceEngine waits in ROADMAP.md, Queue 1")
     if skip_reason(args.arch, "decode_32k"):
         raise SystemExit(f"{args.arch}: {skip_reason(args.arch, 'decode_32k')}")
     device = resolve_device(args.device)
@@ -74,6 +78,7 @@ def main(argv=None):
                          max_pages=args.max_pages,
                          prefill_chunk=args.prefill_chunk,
                          token_budget=args.token_budget,
+                         ragged=args.engine == "ragged",
                          flash_decode=args.flash_decode,
                          prefix_cache=not args.no_prefix_cache,
                          kv_dtype=args.kv_dtype, scheduler=args.scheduler,

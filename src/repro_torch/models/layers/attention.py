@@ -1,5 +1,6 @@
-"""Attention: GQA with RoPE over a paged KV pool for the ragged serving
-step, and full-sequence causal attention for training.
+"""Attention: GQA with RoPE over a paged KV pool for the two serving steps
+(the ragged pack and the two-phase (B, C) step), and full-sequence causal
+attention for training.
 
 Counterpart of the paged, ragged and full-sequence parts of
 ``repro.models.layers.attention``.  Layouts follow the JAX package: q is
@@ -210,6 +211,58 @@ def _gather_paged_kv(cache, dtype):
         return (kops.dequantize_kv(k, cache["ks"][idx], dtype),
                 kops.dequantize_kv(v, cache["vs"][idx], dtype))
     return k.to(dtype), v.to(dtype)
+
+
+def paged_attention_step(params, cfg: AttnCfg, x, cache, q_pos, valid, *,
+                         flash_decode: bool = False):
+    """One step of the two-phase serving path against the paged cache:
+    writes the C incoming tokens of each slot, then attends over everything
+    written so far.
+
+    x: (B, C, D) — C == 1 is a decode tick, C > 1 a prefill chunk; q_pos:
+    (B, C) absolute positions (per slot); valid: (B, C) marks real tokens
+    (invalid rows and tails write nothing and their outputs are ignored by
+    the engine).  A decode tick with ``flash_decode`` goes through the
+    paged flash-decode kernel (``kernels.ops.paged_flash_decode``) over
+    every slot's ``slen``; every other step, prefill chunks included,
+    gathers the slots' block-table context, as in JAX.  Returns (out
+    (B, C, D), cache) with the cache updated in place."""
+    check_attn(cfg)
+    B, C, _ = x.shape
+    q = _project_q(params, cfg, x)  # (B,C,kvH,G,hd)
+    k_new, v_new = _project_kv(params, cfg, x)  # (B,C,kvH,hd)
+    if cfg.rope_theta is not None:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, q_pos, cfg.rope_theta)
+
+    qp = q_pos.long()
+    P = cache["kp"].shape[1]
+    n_pages = cache["kp"].shape[0]
+    pps = cache["ptab"].shape[-1]
+    page_slot = torch.clamp(torch.div(qp, P, rounding_mode="floor"), 0, pps - 1)
+    page = torch.gather(cache["ptab"].long(), 1, page_slot)  # (B,C)
+    page = torch.where(valid, page, n_pages)  # sentinel: write dropped
+    off = torch.remainder(qp, P)
+    _scatter_paged_kv(cache, k_new, v_new, page, off)
+    T = pps * P
+    w = valid & (qp >= 0) & (qp < T)  # JAX drops kpos writes outside [0, T)
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
+    cache["kpos"][rows[w], qp[w]] = q_pos[w].to(cache["kpos"].dtype)
+    cache["slen"].copy_(torch.maximum(
+        cache["slen"],
+        torch.where(valid, q_pos + 1, 0).amax(dim=1).to(cache["slen"].dtype)))
+
+    if flash_decode and C == 1:
+        o = kops.paged_flash_decode(q[:, 0].contiguous(), cache["kp"],
+                                    cache["vp"], cache["ptab"], cache["slen"],
+                                    ks=cache.get("ks"), vs=cache.get("vs"))
+        return _out_proj_replicated(params, cfg, o[:, None]), cache
+
+    k, v = _gather_paged_kv(cache, q.dtype)
+    kvH, hd = cfg.num_kv_heads, cfg.head_dim
+    o = _paged_masked_attn(q, k.reshape(B, T, kvH, hd), v.reshape(B, T, kvH, hd),
+                           cache["kpos"], q_pos, cfg.window)
+    return _out_proj_replicated(params, cfg, o), cache
 
 
 def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,

@@ -1,5 +1,5 @@
 """Model entry points: init, forward and loss (training), paged state, the
-ragged step and its control-plane companions (serving).
+ragged and two-phase steps and their control-plane companions (serving).
 
 Counterpart of ``repro.models.model``.  Parameters live in a ``Model``
 ``nn.Module`` whose parameter names follow the JAX pytree paths
@@ -156,6 +156,26 @@ def init_paged_state(params: Model, cfg: ModelCfg, batch: int, cache_len: int,
     return {"layers": [tfm.init_stage_state_paged(
         cfg, st, batch, cache_len, dt, page_size=page_size, n_pages=n_pages,
         kv_dtype=kv_dtype, device=params.device) for st in cfg.stages]}
+
+
+def paged_step(params: Model, cfg: ModelCfg, state, tokens, q_pos, valid, *,
+               with_logits: bool = True, flash_decode: bool = False):
+    """One step of the two-phase serving path: C tokens per slot at per-slot
+    absolute positions.  tokens/q_pos/valid: (B, C) tensors on the params'
+    device.  C == 1 is a decode tick (returns logits (B, C, V)); C > 1 a
+    prefill chunk, whose caller passes ``with_logits=False`` to skip the
+    final norm and the head (returns None).  Invalid entries write nothing.
+    Returns (logits, state), the state updated in place."""
+    dt = getattr(torch, cfg.dtype)
+    x = emb.embed_tokens(params.embed, tokens.long(), dt)  # (B,C,D)
+    for st, sp, ss in zip(cfg.stages, params.stages, state["layers"]):
+        x, _ = tfm.stage_step_paged(sp, cfg, st, x, ss, q_pos, valid,
+                                    flash_decode=flash_decode)
+    if not with_logits:
+        return None, state
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    logits = emb.logits_from_hidden({}, x, tied_embed=params.embed["tok_embed"])
+    return logits, state
 
 
 def ragged_step(params: Model, cfg: ModelCfg, state, tokens, slot, q_pos,

@@ -1,4 +1,5 @@
-"""Blocks and stages: the training forward and the ragged serving step.
+"""Blocks and stages: the training forward and the two serving steps
+(ragged pack and two-phase).
 
 Counterpart of ``repro.models.transformer``.  A stage's repeats keep JAX's
 stacked layout — every parameter and state leaf of a pattern position
@@ -200,7 +201,7 @@ def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,
 
 
 # ---------------------------------------------------------------------------
-# Ragged serving step
+# Serving steps
 
 
 def init_stage_state_paged(cfg: ModelCfg, stage: Stage, batch: int,
@@ -246,6 +247,34 @@ def stage_step_ragged(params, cfg: ModelCfg, stage: Stage, x, states, slot,
                                      layer_view(states[i], r), slot, q_pos,
                                      seq_idx, valid, width=width,
                                      flash_decode=flash_decode)
+    return x, states
+
+
+def block_step_paged(params, cfg: ModelCfg, blk: BlockCfg, x, state, q_pos,
+                     valid, *, flash_decode: bool = False):
+    """One layer of the two-phase step (x: (B, C, D); ``params``/``state``
+    one layer's views).  Attention mixers with a dense FFN only: the
+    recurrent rolls of JAX's hybrid mixers raise in ``check_block``."""
+    check_block(blk)
+    h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
+    m, state = attn.paged_attention_step(params["mixer"], blk.attn, h, state,
+                                         q_pos, valid,
+                                         flash_decode=flash_decode)
+    x = x + m
+    if blk.ffn is not None:
+        h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
+        x = x + mlp_fwd(params["ffn"], blk.mlp, h)
+    return x, state
+
+
+def stage_step_paged(params, cfg: ModelCfg, stage: Stage, x, states, q_pos,
+                     valid, *, flash_decode: bool = False):
+    """The two-phase step's layer loop, as ``stage_step_ragged``'s."""
+    for r in range(stage.repeats):
+        for i, blk in enumerate(stage.pattern):
+            x, _ = block_step_paged(layer_view(params[i], r), cfg, blk, x,
+                                    layer_view(states[i], r), q_pos, valid,
+                                    flash_decode=flash_decode)
     return x, states
 
 

@@ -1,9 +1,10 @@
-"""ServeEngine — the ragged continuous-batching serving engine, on PyTorch.
+"""ServeEngine — the continuous-batching serving engine, on PyTorch.
 
-Counterpart of the ragged path of ``repro.serve.engine.ServeEngine``, with
-the same constructor signature, request surface (``submit`` / ``cancel`` /
-``tick`` / ``run`` / ``stats``) and scheduling, so that greedy transcripts
-are token-identical to the JAX engine's on the same weights:
+Counterpart of the ragged and two-phase paths of
+``repro.serve.engine.ServeEngine``, with the same constructor signature,
+request surface (``submit`` / ``cancel`` / ``tick`` / ``run`` / ``stats``)
+and scheduling, so that greedy transcripts are token-identical to the JAX
+engine's on the same weights:
 
 - **Pack.** Each tick packs a fixed token budget ``T`` (``token_budget``):
   decode tokens first (a decoding slot emits every tick), then prefill
@@ -11,6 +12,11 @@ are token-identical to the JAX engine's on the same weights:
   budget; a slot whose prompt completes in the pack appends its first
   decode token right behind it.  One step (``serve_step.make_ragged_step``)
   runs the whole pack.
+- **Two-phase path** (``ragged=False``, the JAX engine's A/B baseline).  A
+  tick with any prompt left to prefill runs one (B, ``prefill_chunk``)
+  chunk step for every such slot; otherwise one (B, 1) decode tick for
+  every live slot (``serve_step.make_paged_step``).  As on the ragged path
+  (and in JAX), decode resumes from the last prompt token at position L.
 - **Pool.** The paged KV pool doubles as a refcounted copy-on-write prefix
   cache (``serve.pool.PagePool``, a copy of the JAX package's): admission
   maps the longest cached prefix, copies a partially matched page before
@@ -22,17 +28,19 @@ are token-identical to the JAX engine's on the same weights:
   constructor raises).  The state's tensors are updated in place, so the
   pools keep their ``data_ptr()`` for the engine's life — the port's
   stand-in for JAX's donation.  With ``flash_decode=True`` attention runs in
-  the hand-written CUDA kernel (``kernels/ragged_paged_flash.py``);
-  ``stats["kernel_launches"]`` counts its launches.  ``stats["traces"]``
-  stays 0: nothing is compiled or captured yet.
+  the hand-written CUDA kernels: the ragged step's in
+  ``kernels/ragged_paged_flash.py``, the two-phase decode tick's in
+  ``kernels/paged_flash_decode.py`` (prefill chunks gather, as in JAX);
+  ``stats["kernel_launches"]`` counts the launches of both.
+  ``stats["traces"]`` stays 0: nothing is compiled or captured yet.
 
 Left for later slices, each raising ``NotImplementedError`` naming it:
 speculative decoding (``spec_k>0``), the host-RAM tier (``host_pages>0``),
 tensor parallelism (``mesh``), fault injection (``fault_injector``), the
-two-phase path (``ragged=False``), the reordering schedulers, and priority
-classes (``submit(priority>0)``), which are the only traffic under which
-the JAX engine preempts — so priority-0 transcripts need no preemption, and
-``preempt`` is accepted for the signature's sake and has no effect yet.
+reordering schedulers, and priority classes (``submit(priority>0)``),
+which are the only traffic under which the JAX engine preempts — so
+priority-0 transcripts need no preemption, and ``preempt`` is accepted for
+the signature's sake and has no effect yet.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
+from repro_torch.kernels import paged_flash_decode as pfd
 from repro_torch.kernels import ragged_paged_flash as rpf
 from repro_torch.models import model as M
 from repro_torch.models.transformer import POOL_LEAVES
@@ -54,7 +63,7 @@ from repro_torch.serve.handle import Request, RequestHandle
 from repro_torch.serve.pool import (KV_ITEMSIZE, PagePool, _PrefixNode,
                                     kv_bytes_per_token, kv_page_bytes)
 from repro_torch.serve.scheduler import make_scheduler
-from repro_torch.serve.serve_step import make_ragged_step
+from repro_torch.serve.serve_step import make_paged_step, make_ragged_step
 
 __all__ = ["ServeEngine", "kv_page_bytes", "kv_bytes_per_token"]
 
@@ -63,6 +72,11 @@ def _later(feature: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported yet: it comes with the {slice_name} slice "
         "of the PyTorch port (ROADMAP.md, Queue 1)")
+
+
+def _kernel_launches() -> int:
+    """Launches of both serving attention kernels so far."""
+    return rpf.launches + pfd.launches
 
 
 @dataclasses.dataclass
@@ -98,8 +112,6 @@ class ServeEngine:
             raise _later("tensor-parallel serving (mesh=)", "multi-GPU")
         if fault_injector is not None:
             raise _later("fault injection (fault_injector=)", "preemption/chaos")
-        if not ragged:
-            raise _later("the two-phase path (ragged=False)", "two-phase")
         self.scheduler = make_scheduler(scheduler)
         self.scheduler_name = self.scheduler.name
         self.device = resolve_device(device)
@@ -112,11 +124,12 @@ class ServeEngine:
         self.chunk = prefill_chunk
         self.budget = token_budget
         self.greedy = greedy
+        self.ragged = ragged
         self.kv_dtype = str(kv_dtype or cfg.dtype)
         if self.kv_dtype not in KV_ITEMSIZE:
             raise ValueError(f"unsupported kv_dtype {self.kv_dtype!r} "
                              f"(pick from {sorted(KV_ITEMSIZE)})")
-        if token_budget < batch_size:
+        if ragged and token_budget < batch_size:
             raise ValueError(
                 f"token_budget={token_budget} < batch_size={batch_size}: "
                 "every decoding slot needs one pack entry per tick")
@@ -167,14 +180,18 @@ class ServeEngine:
                        "kv_pool_bytes": self.n_pages * page_bytes,
                        "kv_shards": 1, "n_devices": 1,
                        "kv_pool_bytes_per_device": self.n_pages * page_bytes,
-                       # launches of the CUDA attention kernel by this
+                       # launches of the CUDA attention kernels by this
                        # engine's steps (0 on the CPU, which runs the plain
-                       # version)
+                       # versions)
                        "kernel_launches": 0}
         # width = most tokens one slot contributes to a pack: a prefill
         # chunk plus its handoff decode token
         self._ragged_step = make_ragged_step(cfg, width=prefill_chunk + 1,
                                              flash_decode=flash_decode)
+        self._chunk_step = make_paged_step(cfg, with_logits=False,
+                                           flash_decode=flash_decode)
+        self._decode_step = make_paged_step(cfg, with_logits=True,
+                                            flash_decode=flash_decode)
 
     # -- public surface ---------------------------------------------------
     def submit(self, prompt, max_tokens: int = 16, eos_id=None, *,
@@ -491,12 +508,11 @@ class ServeEngine:
         results: Dict[int, List[int]] = {}
         if n == 0:
             return state, results
-        dev = self.device
-        before = rpf.launches
+        before = _kernel_launches()
         logits, state = self._ragged_step(
-            self.params, state, *(torch.from_numpy(a).to(dev) for a in (
-                tokens, slot, q_pos, seq_idx, valid, logit_idx)))
-        self._stats["kernel_launches"] += rpf.launches - before
+            self.params, state, *self._to_device(
+                tokens, slot, q_pos, seq_idx, valid, logit_idx))
+        self._stats["kernel_launches"] += _kernel_launches() - before
         self._stats["ragged_ticks"] += 1
         self._stats["packed_tokens"] += n
         if sampling:
@@ -509,11 +525,72 @@ class ServeEngine:
                     results)
         return state, results
 
+    # -- two-phase path (ragged=False) ------------------------------------
+    def _prefill_tick(self, state):
+        """Advance every slot with outstanding prompt tokens by one chunk —
+        a single batched (B, chunk) step with per-slot positions."""
+        C = self.chunk
+        tokens = np.zeros((self.B, C), np.int32)
+        q_pos = np.zeros((self.B, C), np.int32)
+        valid = np.zeros((self.B, C), bool)
+        for b, s in enumerate(self.slots):
+            if s is None:
+                continue
+            L = len(s.req.prompt)
+            if s.fill >= L:
+                continue
+            n = min(C, L - s.fill)
+            tokens[b, :n] = s.req.prompt[s.fill:s.fill + n]
+            q_pos[b] = s.fill + np.arange(C)
+            valid[b, :n] = True
+            s.fill += n
+            self._index_filled_pages(s)
+            if s.fill >= L:
+                s.pos = L
+                s.last_tok = int(s.req.prompt[-1])
+        before = _kernel_launches()
+        _, state = self._chunk_step(self.params, state,
+                                    *self._to_device(tokens, q_pos, valid))
+        self._stats["kernel_launches"] += _kernel_launches() - before
+        self._stats["chunk_ticks"] += 1
+        return state
+
+    def _decode_tick(self, state):
+        """One decode token for every live slot — a (B, 1) step; idle slots
+        ride along invalid (their kernel rows read stale pages, clamped into
+        the pool, and are ignored)."""
+        tokens = np.zeros((self.B, 1), np.int32)
+        q_pos = np.zeros((self.B, 1), np.int32)
+        valid = np.zeros((self.B, 1), bool)
+        for b, s in enumerate(self.slots):
+            if s is None:
+                continue
+            tokens[b, 0] = s.last_tok
+            q_pos[b, 0] = s.pos
+            valid[b, 0] = True
+        before = _kernel_launches()
+        logits, state = self._decode_step(self.params, state,
+                                          *self._to_device(tokens, q_pos, valid))
+        self._stats["kernel_launches"] += _kernel_launches() - before
+        rows = logits[:, -1].float().cpu().numpy()  # (B, V)
+        self._stats["decode_ticks"] += 1
+        results: Dict[int, List[int]] = {}
+        for b, s in enumerate(self.slots):
+            if s is None:
+                continue
+            self._finish_token(b, self._sample(s.req, rows[b],
+                                               len(s.req.out_tokens)),
+                               results)
+        return state, results
+
     # -- driving ----------------------------------------------------------
     @property
     def idle(self) -> bool:
         """No live slot and nothing queued."""
         return all(s is None for s in self.slots) and not self.queue
+
+    def _to_device(self, *arrays):
+        return [torch.from_numpy(a).to(self.device) for a in arrays]
 
     def _ensure_state(self):
         """Decode state is created once and persists for the engine's whole
@@ -535,7 +612,14 @@ class ServeEngine:
         self._ensure_state()
         self._expire_deadlines()
         self._state = self._admit_round(self._state)
-        self._state, results = self._ragged_tick(self._state)
+        results: Dict[int, List[int]] = {}
+        if self.ragged:
+            self._state, results = self._ragged_tick(self._state)
+        elif any(s is not None and s.fill < len(s.req.prompt)
+                 for s in self.slots):
+            self._state = self._prefill_tick(self._state)
+        elif any(s is not None for s in self.slots):
+            self._state, results = self._decode_tick(self._state)
         self._stats["ticks"] += 1
         return results
 
