@@ -7,7 +7,9 @@ Phases (every check asserts; any failure exits non-zero):
 1. Card, power limit, torch/CUDA versions; TF32 off for matmul and cuDNN.
 2. Build the five CUDA kernels from ``src/repro_torch`` (the serving,
    two-phase decode, training, RMSNorm and matmul kernels), one ``nvcc`` per
-   source started together, and print ptxas's register and spill report.
+   source started together, and print ptxas's register and spill report;
+   count the wgmma (HGMMA) and TMA (UTMALDG) instructions in the
+   flash_attention and matmul libraries' SASS and fail if either is 0.
 3. Each kernel against its plain PyTorch version at full-width shapes.
    Tolerance: f32 outputs rtol = atol = 1e-4; bf16 outputs atol = 2e-2,
    compared in f32, and for flash_attention and paged_flash_decode also
@@ -21,17 +23,21 @@ Phases (every check asserts; any failure exits non-zero):
    - flash_attention at the training shape (q (24, 4096, 128) over k/v
      (4, 4096, 128): batch 2 x 2 KV heads x 6 query heads each) in f32 and
      bf16, windowed (window 512, bf16), and a small odd case (S 96, G 3,
-     bq = bk = 32) in f32 and bf16; then CUDA-event times of the kernel, the
-     plain version and ``scaled_dot_product_attention`` (the library
-     yardstick, which the port never calls) at the training shape in bf16,
-     beside the operation bound.
+     bq = bk = 32) in f32 and bf16, each case's variant ("wgmma" for bf16,
+     "simt" for f32, as ``flash_variant`` says) and TFLOP/s printed; then
+     CUDA-event times of the kernel, the plain version and
+     ``scaled_dot_product_attention`` (the library yardstick, which the port
+     never calls) at the training shape in bf16 and f32, beside the
+     operation bound.
    - paged_flash_decode at phase 4's decode tick (8 slots, lens up to
      2048, one empty slot, sentinel pages), q in {f32, bf16} x pools in
      {f32, bf16, int8}; CUDA-event times beside the byte bound.
    - matmul, both accumulation policies, f32 and bf16, at 4096^3 and
      1000 x 1500 x 700, against its plain version (f32: rtol 1e-4; bf16:
      rtol 2^-7, one rounding unit; each with an atol of 2^-16 (f32) or
-     2^-12 (bf16) x sqrt(K) x rms|a| x rms|b|); times beside
+     2^-12 (bf16) x sqrt(K) x rms|a| x rms|b|), each case's route
+     (``matmul_route``: TMA or register-staged wgmma for bf16, cp.async or
+     scalar-load FMA for f32) printed; times and TFLOP/s beside
      ``torch.matmul`` and the bound (the "hbm" policy's bytes count its C
      passes).
    - rmsnorm at the serving pack (256 x 1536) and the training
@@ -62,7 +68,8 @@ Phases (every check asserts; any failure exits non-zero):
    use_flash=True) on the repo's train_4k shape (sequence 4096) cut to batch
    2: four ``TrainLoop`` steps at lr 3e-4.  Every loss is finite; the
    flash kernel launched exactly 2 x 28 times a step (each layer's forward
-   and its recomputation in the backward pass); per step: time, tokens/s
+   and its recomputation in the backward pass), every launch through the
+   "wgmma" variant; per step: time, tokens/s
    and the model-FLOPs share (6 N tokens over time x 989 TFLOP/s); peak
    memory and the allocator's cudaMalloc/cudaFree counts.  One more step
    under ``torch.profiler`` (CUDA activity) gives the device's busy time,
@@ -75,7 +82,7 @@ Phases (every check asserts; any failure exits non-zero):
 8. The paper's experiment from ``repro_torch.benchmarks``: the Fig. 4/5
    matmul sweep (cuBLAS and the matmul kernel, nproc 1 to 64, N =
    16384/sqrt(nproc), f32) and the 15-row memory-mode table (8192^3 f32),
-   with the matmul kernel's launches counted.
+   with the matmul kernel's launches counted, all through its float32 routes.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -85,6 +92,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -240,6 +249,26 @@ def bound(args) -> tuple:
     nbytes = (kv_bytes + n_live * row + T * row + T * 4 + n_live * 4
               + entries * 4)
     return roof(nbytes, 4.0 * float(lens_c.sum()) * G * kvH * hd, q.dtype)
+
+
+def sass_phase(card: str) -> dict:
+    """Counts the wgmma (HGMMA) and TMA tile-load (UTMALDG) instructions in
+    the built flash_attention and matmul libraries (``cuobjdump
+    --dump-sass``); fails if either count is 0 in either library."""
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in ("flash_attention", "matmul"):
+        sass = subprocess.run([tool, "--dump-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass))
+                  for op in ("HGMMA", "UTMALDG")}
+        print(f"SASS of {name} (built for {card}): {counts['HGMMA']} HGMMA, "
+              f"{counts['UTMALDG']} UTMALDG instructions")
+        assert all(counts.values()), f"{name} has no tensor-core or TMA code: {counts}"
+        out[name] = counts
+    return out
 
 
 def check_kernel(card: str) -> dict:
@@ -412,8 +441,11 @@ def check_matmul(card: str) -> dict:
                    else dict(rtol=2 ** -7, atol=2 ** -12 * spread))
             want = mm.matmul_ref(a, b)
             for accum in mm.ACCUMS:
+                mm.reset_launches()
                 got = mm.matmul(a, b, block=block, accum=accum)
                 torch.cuda.synchronize()
+                route = ran(mm.launches_by_route)
+                assert route == mm.matmul_route(dt, K, N), (M, dt, accum, route)
                 torch.testing.assert_close(got.float(), want.float(), **tol)
                 err = float((got.float() - want.float()).abs().max())
                 ms = cuda_ms(lambda: mm.matmul(a, b, block=block, accum=accum),
@@ -424,7 +456,8 @@ def check_matmul(card: str) -> dict:
                 passes = mm.k_passes(K, block, accum)
                 moved = mm.policy_bytes(M, K, N, dt, block, accum)
                 print(f"matmul {M}x{K}x{N} {dt} accum {accum} ({passes} C "
-                      f"passes, {moved / 1e9:.3f} GB to move) on {card}: max "
+                      f"passes, {moved / 1e9:.3f} GB to move), route {route}, "
+                      f"on {card}: max "
                       f"|err| {err:.3e} (tol "
                       f"rtol {tol['rtol']:.3g}, atol {tol['atol']:.3g}); kernel "
                       f"{ms:.4f} ms = {2e-9 * M * N * K / ms:.1f} TFLOP/s, plain "
@@ -510,16 +543,26 @@ def flash_inputs(BH, BKV, S, hd, dtype, seed=0):
             for shape in ((BH, S, hd), (BKV, S, hd), (BKV, S, hd))]
 
 
-def flash_bound(q, k, window=None) -> tuple:
-    """(ms, "bytes" | "operations"): q, k and v read once and the output
-    written once; 4 * hd FLOPs for each (row, col) pair the mask keeps —
-    0 <= row - col < window (S without one) — in each of the BH rows, at
-    the peak rate of the inputs' type."""
+def flash_flops(q, window=None) -> float:
+    """4 * hd FLOPs for each (row, col) pair the mask keeps — 0 <= row - col
+    < window (S without one) — in each of the BH rows."""
     BH, S, hd = q.shape
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     W = S if window is None else min(window, S)
     pairs = W * S - W * (W - 1) // 2
-    return roof(nbytes, 4.0 * hd * pairs * BH, q.dtype)
+    return 4.0 * hd * pairs * BH
+
+
+def flash_bound(q, k, window=None) -> tuple:
+    """(ms, "bytes" | "operations"): q, k and v read once and the output
+    written once; ``flash_flops`` at the peak rate of the inputs' type."""
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return roof(nbytes, flash_flops(q, window), q.dtype)
+
+
+def ran(counts: dict) -> str:
+    """The one variant or route a per-variant launch count shows ran
+    (several, joined by "+", if more than one did)."""
+    return "+".join(k for k, n in counts.items() if n) or "none"
 
 
 def check_flash(card: str) -> dict:
@@ -541,8 +584,11 @@ def check_flash(card: str) -> dict:
     errs = {}
     for name, shape, dt, window, blk in cases:
         q, k, v = flash_inputs(**shape, dtype=dt)
+        fa.reset_launches()
         got = fa.flash_attention(q, k, v, bq=blk, bk=blk, window=window)
         torch.cuda.synchronize()
+        variant = ran(fa.launches_by_variant)
+        assert variant == fa.flash_variant(dt, q.shape[-1]), (name, dt, variant)
         want = fa.flash_attention_ref(q, k, v, window)
         tol = (dict(rtol=1e-4, atol=1e-4) if dt == torch.float32
                else dict(rtol=0.0, atol=2e-2))
@@ -553,8 +599,13 @@ def check_flash(card: str) -> dict:
             assert rel <= BF16_ROW_RTOL, (name, rel)
             tol = {**tol, "row_rtol": BF16_ROW_RTOL}
         errs[(name, dt)] = err
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, bq=blk, bk=blk,
+                                                window=window),
+                     iters=10, warmup=2)
         print(f"flash_attention vs plain: {name} {tuple(q.shape)} over "
-              f"{tuple(k.shape)} {dt} window {window}: max |err| {err:.3e}, "
+              f"{tuple(k.shape)} {dt} window {window}, variant {variant}, "
+              f"{ms:.4f} ms = {flash_flops(q, window) / ms / 1e9:.1f} "
+              f"TFLOP/s: max |err| {err:.3e}, "
               f"max row |err| / |ref| {rel:.3e}, median |ref| "
               f"{float(want.float().abs().median()):.3e} (tol {tol})")
         del q, k, v, got, want
@@ -573,8 +624,10 @@ def check_flash(card: str) -> dict:
         diff = float((sdpa().reshape(q.shape).float()
                       - fa.flash_attention(q, k, v).float()).abs().max())
         b_ms, b_by = flash_bound(q, k)
-        print(f"flash_attention at the training shape {tuple(q.shape)} {dt} on "
-              f"{card}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        tflops = flash_flops(q) / ms / 1e9
+        print(f"flash_attention at the training shape {tuple(q.shape)} {dt}, "
+              f"variant {fa.flash_variant(dt, q.shape[-1])}, on {card}: kernel "
+              f"{ms:.4f} ms = {tflops:.1f} TFLOP/s, plain {plain:.4f} ms, "
               f"scaled_dot_product_attention {lib:.4f} ms (max |diff| to the "
               f"kernel {diff:.3e}), bound {b_ms:.5f} ms ({b_by}), share of "
               f"bound {b_ms / ms:.4f}, kernel / library {ms / lib:.2f}")
@@ -841,9 +894,10 @@ def sweep_phase(card: str) -> int:
     from repro_torch.benchmarks import run as bench
     from repro_torch.kernels import matmul as mm
 
-    mm.launches = 0
+    mm.reset_launches()
     rows = [r for mod in bench.MODULES for r in mod.rows(device="cuda")]
     launches = mm.launches
+    by_route = {k: n for k, n in mm.launches_by_route.items() if n}
     print(f"the paper's sweep on {card} (CSV name,us_per_call,derived):")
     print("name,us_per_call,derived")
     for name, us, derived in rows:
@@ -851,12 +905,19 @@ def sweep_phase(card: str) -> int:
         gf = float(derived.split("GF/s")[0])
         assert math.isfinite(gf) and gf > 0, (name, derived)
     assert launches > 0, "the sweep never launched the matmul kernel"
-    print(f"matmul kernel launches in the sweep: {launches}")
+    # float32 throughout: every launch took a float32 FMA route
+    assert sum(by_route.get(r, 0) for r in ("fma_async", "fma_scalar")) == launches, \
+        by_route
+    print(f"matmul kernel launches in the sweep: {launches}, by route {by_route}")
     return launches
 
 
 # ---------------------------------------------------------------------------
 # 6. full-width training
+
+
+# the flash kernel's two variants, by their CUDA function names
+FLASH_KERNELS = ("flash_attention_kernel", "flash_wgmma_kernel")
 
 
 def flash_launches_per_step(cfg) -> int:
@@ -878,11 +939,13 @@ def train_full(card: str, steps: int = 4) -> dict:
     loop = TrainLoop(cfg, shape, lr=3e-4, total_steps=steps, batch_override=B,
                      device="cuda", seed=0)
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0  # count only the main path's launches
+    fa.reset_launches()  # count only the main path's launches
     hist = loop.run(steps)
     launches = fa.launches
+    by_variant = dict(fa.launches_by_variant)
     per_step = flash_launches_per_step(cfg)
     assert launches == per_step * steps, (launches, per_step, steps)
+    assert by_variant["wgmma"] == launches, by_variant  # bf16, hd 128
     assert all(np.isfinite(r["loss"]) for r in hist), hist
     peak = torch.cuda.max_memory_allocated() / 2**30
     tokens = B * shape.seq_len
@@ -890,7 +953,8 @@ def train_full(card: str, steps: int = 4) -> dict:
     print(f"train qwen2-1.5b FULL ({cfg.n_layers} layers, {n / 1e9:.3f} B "
           f"params), seq {shape.seq_len}, batch {B}, bf16 activations, f32 "
           f"params, remat {cfg.remat}, use_flash, on {card}: flash kernel "
-          f"launches {launches} = {per_step} per step x {steps} steps; peak "
+          f"launches {launches} = {per_step} per step x {steps} steps, by "
+          f"variant {by_variant}; peak "
           f"memory {peak:.2f} GiB")
     for r in hist:
         t = r["time_s"]
@@ -936,7 +1000,7 @@ def train_full(card: str, steps: int = 4) -> dict:
         print("  profiler: no device time recorded (not measured)")
     else:
         fa_ms = sum(ms for name, ms in by_name.items()
-                    if "flash_attention_kernel" in name)
+                    if any(k in name for k in FLASH_KERNELS))
         out["busy_ms"] = busy
         print(f"  profiled step (CUDA activity) on {card}: {wall:.1f} ms wall, "
               f"device busy {busy:.1f} ms in {n_device} kernels and copies; "
@@ -952,7 +1016,7 @@ def train_full(card: str, steps: int = 4) -> dict:
                   "copies and casts": 0.0, "other": 0.0}
         for name, ms in by_name.items():
             low = name.lower()
-            if "flash_attention_kernel" in name:
+            if any(k in name for k in FLASH_KERNELS):
                 g = "flash kernel"
             elif any(t in low for t in ("nvjet", "gemm", "cutlass", "sm90_xmma")):
                 g = "GEMM"
@@ -1049,6 +1113,7 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    sass_phase(card)
     kres = check_kernel(card)
     dres = check_decode(card)
     fres = check_flash(card)

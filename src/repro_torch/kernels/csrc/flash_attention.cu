@@ -19,23 +19,56 @@
 // FLOPs, 0.104 ms at the 989 TFLOP/s of bf16 tensor cores; the bytes (q, k,
 // v read once and the output written once, 59 MB) take 0.018 ms.
 //
-// Design (right and simple first): one 256-thread block per (bh, 64-row query
-// tile), the heaviest tiles (nearest the end of the sequence) launched first.
-// The TPU grid's sequential K axis becomes a loop inside the block over the
-// 64-row K/V tiles up to the diagonal.  q, K and V tiles are staged in shared
-// memory as float32 with 16-byte global loads (K and V share one buffer, so
-// two blocks fit on an SM); each thread computes a 4 x 4 score tile and a
-// 4 x 8 slice of the 64 x hd accumulator with float32 FMAs, and keeps its
-// rows' m and l in registers (the 16 threads of a row reduce with shuffles).
-// It does not use the tensor cores, so its ceiling is the card's 67 TFLOP/s
-// of float32 FMA (1.5 ms here), some 15x above the bf16 bound.  wgmma, TMA
-// and a pipelined K/V ring are the work of a later PR.
+// Two variants; the wrapper picks one from the dtype and head_dim (never
+// from a failed build or launch) and passes it in:
+//
+// "wgmma" (bf16, hd 64 or 128: the training path).  One block per (bh,
+// 128-row query tile), the heaviest tiles (nearest the end of the sequence)
+// dispatched first.  Warp 8 is the producer: one thread loads the q tile
+// once and keeps 64-key K and V tiles in flight through a 3-stage ring in
+// shared memory, by TMA (3-D tensor maps over (BH or BKV, S, hd), so rows
+// past S are zero-filled and never read another head's rows), 128-byte
+// swizzle, each tile a row of 64-column boxes, each stage with its own
+// K-full, V-full and empty mbarriers.  Warpgroups 0 and 1 each own 64 query
+// rows: S = Q K^T is wgmma m64n64k16 from shared memory (q and K K-major, as
+// stored); the softmax runs in registers on the accumulators; O += P V is
+// wgmma m64n(hd)k16 with P from registers and V from shared memory, read
+// transposed through the descriptor's transpose bit.  Key tiles wholly
+// below the diagonal (and inside the window) skip the mask; tiles above
+// the diagonal or wholly older than the window are skipped.  On tensor
+// cores the TPU kernel's arithmetic holds as follows: bf16 x bf16 products
+// are exact in float32 and wgmma accumulates in float32, so the score is
+// q_f32 . k_f32 as there; the hd^-0.5 scale is applied to that float32
+// score (times log2 e, for exp2) instead of to q, which differs by float32
+// rounding only; the row sum l is taken from the float32 p, and then p is
+// rounded to bf16 in registers as the A operand of the PV product.  What
+// this design leaves for later: overlapping one tile's softmax with the
+// next tile's QK^T, 128-key tiles with setmaxnreg, a TMA store of O.
+//
+// "simt" (float32, the parity route, and any other hd, a multiple of 8 up
+// to 128; TF32 would change the float32 result): one 256-thread block per
+// (bh, 64-row query tile), heaviest first.  The TPU grid's sequential K axis
+// becomes a loop inside the block over the 64-row K/V tiles up to the
+// diagonal.  q, K and V tiles are staged in shared memory as float32 with
+// 16-byte global loads (K and V share one buffer, so two blocks fit on an
+// SM); each thread computes a 4 x 4 score tile and a 4 x 8 slice of the
+// 64 x hd accumulator with float32 FMAs, and keeps its rows' m and l in
+// registers (the 16 threads of a row reduce with shuffles).  Its ceiling is
+// the card's 67 TFLOP/s of float32 FMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+// the wrapper's VARIANTS, in order
+enum Variant { kSimt = 0, kWgmma = 1 };
+
+// ---------------------------------------------------------------------------
+// the "simt" variant
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // key rows per tile
@@ -261,17 +294,238 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// the "wgmma" variant (bf16, hd 64 or 128)
+
+constexpr int kWgBQ = 128;       // query rows per block: two warpgroups of 64
+constexpr int kWgBK = 64;        // keys per K/V tile
+constexpr int kWgStages = 3;     // K/V ring depth
+constexpr int kWgThreads = 288;  // warpgroups 0-1 compute, warp 8 loads
+constexpr int kWgConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct WgSmem {
+  static constexpr int kBoxes = HD / 64;         // 64-column swizzle boxes per row
+  static constexpr int kQBox = kWgBQ * 128;      // bytes of one q box
+  static constexpr int kKvBox = kWgBK * 128;     // bytes of one K or V box
+  static constexpr int kKvBytes = kBoxes * kKvBox;
+  alignas(1024) uint8_t q[kBoxes * kQBox];
+  alignas(1024) uint8_t k[kWgStages][kKvBytes];
+  alignas(1024) uint8_t v[kWgStages][kKvBytes];
+  uint64_t q_full, k_full[kWgStages], v_full[kWgStages], empty[kWgStages];
+};
+
+// One block per (bh = blockIdx.x, query tile nq - 1 - blockIdx.y).  The
+// tensor maps cover q (BH, S, hd) and k, v (BKV, S, hd) in boxes of
+// (1, rows, 64).  out: (BH, S, hd) bf16.  window <= 0 means none.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out, int S, int G,
+    int window, float scale_log2) {
+  using Smem = WgSmem<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023));
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBQ;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kWgBK : 0;
+  const int kt_hi = (min(q0 + kWgBQ, S) - 1) / kWgBK;
+  const int ntiles = kt_hi - kt_lo + 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      sm90::mbar_init(&sm.k_full[s], 1);
+      sm90::mbar_init(&sm.v_full[s], 1);
+      sm90::mbar_init(&sm.empty[s], kWgConsumerWarps);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kWgConsumerWarps) {  // the producer
+    if (lane == 0) {
+      const int bkv = bh / G;
+      sm90::mbar_expect_tx(&sm.q_full, sizeof(sm.q));
+      for (int b = 0; b < Smem::kBoxes; ++b)
+        sm90::tma_load_3d(sm.q + b * Smem::kQBox, &map_q, &sm.q_full, 64 * b, q0, bh);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kWgStages;
+        if (t >= kWgStages) sm90::mbar_wait(&sm.empty[s], (t / kWgStages - 1) & 1);
+        const int k0 = (kt_lo + t) * kWgBK;
+        sm90::mbar_expect_tx(&sm.k_full[s], Smem::kKvBytes);
+        for (int b = 0; b < Smem::kBoxes; ++b)
+          sm90::tma_load_3d(sm.k[s] + b * Smem::kKvBox, &map_k, &sm.k_full[s], 64 * b, k0, bkv);
+        sm90::mbar_expect_tx(&sm.v_full[s], Smem::kKvBytes);
+        for (int b = 0; b < Smem::kBoxes; ++b)
+          sm90::tma_load_3d(sm.v[s] + b * Smem::kKvBox, &map_v, &sm.v_full[s], 64 * b, k0, bkv);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows [r_lo, r_lo + 64); this thread's rows are
+  // r0 and r0 + 8 (the accumulator layout of sm90.cuh)
+  const int wg = warp / 4;
+  const int r_lo = q0 + 64 * wg;
+  const int r0 = r_lo + 16 * (warp % 4) + lane / 4;
+  const bool live = r_lo < S;
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's part
+  const uint32_t q_addr = sm90::smem_u32(sm.q) + wg * 64 * 128;
+
+  sm90::mbar_wait(&sm.q_full, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % kWgStages;
+    const uint32_t parity = (t / kWgStages) & 1;
+    const int k0 = (kt_lo + t) * kWgBK;
+    const bool skip = !live || k0 > r_lo + 63 ||
+                      (window > 0 && r_lo - (k0 + kWgBK - 1) >= window);
+    sm90::mbar_wait(&sm.k_full[s], parity);
+    if (!skip) {
+      // S = Q K^T over the tile's 64 keys, in float32
+      float sc[32];
+      const uint32_t k_addr = sm90::smem_u32(sm.k[s]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < Smem::kBoxes; ++b)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_ss_n64<0>(
+              sc, sm90::wgmma_desc(q_addr + b * Smem::kQBox + 32 * kk, 16, 1024),
+              sm90::wgmma_desc(k_addr + b * Smem::kKvBox + 32 * kk, 16, 1024), b + kk);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+
+      // scale, mask, online softmax; p = 0 outright where masked
+      const bool unmasked =
+          k0 + kWgBK - 1 <= r_lo && (window <= 0 || r_lo + 63 - k0 < window);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = sc[i] * scale_log2;
+        if (!unmasked) {
+          const int row = r0 + 8 * ((i >> 1) & 1);
+          const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          if (col > row || (window > 0 && row - col >= window)) x = kNegInf;
+        }
+        sc[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
+      uint32_t pa[4][4];  // P as the A operand, one k16 step per key group
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = (i >> 1) & 1;
+        const float p0 = sc[i] == kNegInf ? 0.f : exp2f(sc[i] - m[r]);
+        const float p1 = sc[i + 1] == kNegInf ? 0.f : exp2f(sc[i + 1] - m[r]);
+        l[r] += p0 + p1;  // the sum before p is rounded to bf16
+        pa[i >> 3][(i >> 1) & 3] = sm90::pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // O += P V
+      sm90::mbar_wait(&sm.v_full[s], parity);
+      const uint32_t v_addr = sm90::smem_u32(sm.v[s]);
+      sm90::fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(pa[kk]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = sm90::wgmma_desc(v_addr + kk * 16 * 128, Smem::kKvBox, 1024);
+        if constexpr (HD == 128) {
+          sm90::wgmma_rs_n128<1>(o, pa[kk], dv, 1);
+        } else {
+          sm90::wgmma_rs_n64<1>(o, pa[kk], dv, 1);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+    } else {
+      sm90::mbar_wait(&sm.v_full[s], parity);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);  // this warp is done with stage s
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    den = fmaxf(den, 1e-30f);
+    const int row = r0 + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* orow = out + ((size_t)bh * S + row) * HD + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const uint32_t packed = sm90::pack_bf16(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) = packed;
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int BH, int BKV,
+                         int S, int window, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)S * HD * 2};
+  const cuuint64_t dq[3] = {HD, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t dkv[3] = {HD, (cuuint64_t)S, (cuuint64_t)BKV};
+  const cuuint32_t box_q[3] = {64, kWgBQ, 1}, box_kv[3] = {64, kWgBK, 1};
+  cudaError_t e = sm90::bf16_tensor_map(&mq, q, 3, dq, strides, box_q);
+  if (e == cudaSuccess) e = sm90::bf16_tensor_map(&mk, k, 3, dkv, strides, box_kv);
+  if (e == cudaSuccess) e = sm90::bf16_tensor_map(&mv, v, 3, dkv, strides, box_kv);
+  if (e != cudaSuccess) return e;
+  auto kern = flash_wgmma_kernel<HD>;
+  const size_t smem = sizeof(WgSmem<HD>) + 1024;  // + room to align to 1024
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (S + kWgBQ - 1) / kWgBQ);
+  kern<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out), S,
+                                           BH / BKV, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and out share it).  window <= 0 means
-// none.  Returns the cudaError_t of the launch.
-extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
-                               void* out, int BH, int BKV, int S, int hd, int window,
-                               float scale, void* stream) {
+// variant: a Variant (wgmma: bf16 with hd 64 or 128 only).  dtype: 0
+// float32, 1 bfloat16 (q, k, v and out share it).  window <= 0 means none.
+// Returns the cudaError_t of the launch.
+extern "C" int flash_attention(int variant, int dtype, const void* q, const void* k,
+                               const void* v, void* out, int BH, int BKV, int S, int hd,
+                               int window, float scale, void* stream) {
   if (BKV <= 0 || BH % BKV != 0 || hd % 8 != 0 || hd > kMaxHd || S <= 0)
     return (int)cudaErrorInvalidValue;
   const int G = BH / BKV;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == kWgmma) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (hd == 128) return (int)launch_wgmma<128>(q, k, v, out, BH, BKV, S, window, scale, st);
+    if (hd == 64) return (int)launch_wgmma<64>(q, k, v, out, BH, BKV, S, window, scale, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (variant != kSimt) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)launch<float>(q, k, v, out, BH, S, hd, G, window, scale, st);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, out, BH, S, hd, G, window, scale, st);

@@ -5,8 +5,13 @@ Replaces ``repro/kernels/flash_attention.py:flash_attention`` (the Pallas TPU
 kernel).  ``flash_attention`` launches the hand-written kernel in
 ``csrc/flash_attention.cu`` for CUDA tensors, and runs
 ``flash_attention_ref`` only for CPU tensors; there is no fallback from one
-to the other.  ``launches`` counts kernel launches (the plain version does
-not count), so a run can show that its attention went through the kernel.
+to the other.  The kernel has two variants, chosen by ``flash_variant`` from
+the dtype and head_dim alone: "wgmma" (tensor cores, TMA) for bfloat16 at
+head_dim 64 or 128, "simt" (float32 FMA) for float32 — the parity route,
+where TF32 would change the result — and for any other head_dim.
+``launches`` counts kernel launches (the plain version does not count), and
+``launches_by_variant`` splits them by variant, so a run can show that its
+attention went through the kernel it expected.
 """
 from __future__ import annotations
 
@@ -17,11 +22,30 @@ import torch
 
 NEG_INF = -1e30
 
-# kernel launches since the last reset (the caller sets it back to 0)
+# kernel launches since the last reset (the caller sets it back to 0, and
+# every entry of launches_by_variant with reset_launches())
 launches = 0
+VARIANTS = ("simt", "wgmma")
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
+
+
+def reset_launches() -> None:
+    """Set ``launches`` and every ``launches_by_variant`` count to 0."""
+    global launches
+    launches = 0
+    for v in VARIANTS:
+        launches_by_variant[v] = 0
+
+
+def flash_variant(dtype, hd: int) -> str:
+    """The kernel variant for q, k, v of ``dtype`` and head_dim ``hd``:
+    "wgmma" for bfloat16 at hd 64 or 128 (the shapes its TMA boxes and
+    wgmma tiles are built for), "simt" otherwise.  A documented choice of
+    shape and type, never a reaction to a failed build or launch."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "simt"
 
 
 def flash_attention_ref(q, k, v, window: Optional[int] = None):
@@ -76,7 +100,7 @@ def _lib():
 
     fn = build.load("flash_attention").flash_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -90,7 +114,8 @@ def flash_attention(q, k, v, *, bq: int = 128, bk: int = 128,
     ``bh`` attends to K/V row ``bh // (BH // BKV)``.  float32 or bfloat16,
     all three alike, contiguous.  ``bq``/``bk`` are the Pallas kernel's
     tiles: S must be a multiple of each (capped at S), as there; the CUDA
-    kernel picks its own tiles.  Returns (BH, S, hd) in q's dtype."""
+    kernel picks its own tiles, and its variant by ``flash_variant``.
+    Returns (BH, S, hd) in q's dtype."""
     global launches
     _check(q, k, v, bq, bk, window)
     if q.device.type == "cpu":
@@ -106,13 +131,16 @@ def flash_attention(q, k, v, *, bq: int = 128, bk: int = 128,
     out = torch.empty_like(q)
     if BH == 0 or S == 0:
         return out
+    variant = flash_variant(q.dtype, hd)
     fn = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), BH, k.shape[0], S, hd,
-                 0 if window is None else int(window), hd ** -0.5, stream)
+        err = fn(VARIANTS.index(variant), _CODES[q.dtype], q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+                 k.shape[0], S, hd, 0 if window is None else int(window),
+                 hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
+    launches_by_variant[variant] += 1
     return out

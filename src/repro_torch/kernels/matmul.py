@@ -15,13 +15,18 @@ is computed or moved: ``bk`` sets the number of C passes of the ``hbm``
 policy.  ``bm``/``bn`` (and ``bk`` under ``vmem``) only cut the TPU grid
 and pad the operands with zeros there, which changes no result; the CUDA
 kernel picks its own 128 x 128 output tiles and masks the ragged edges
-instead of padding.
+(and each slice's end) instead of padding.
 
 ``matmul`` launches the hand-written kernel in ``csrc/matmul.cu`` for CUDA
 tensors and runs ``matmul_ref`` only for CPU tensors; there is no fallback
-from one to the other.  ``launches`` counts kernel launches (one per call
+from one to the other.  Each launch takes one of four routes, chosen by
+``matmul_route`` from the dtype and the layout alone: float32 runs float32
+FMA, bfloat16 runs wgmma on the tensor cores; each takes its fast route
+("fma_async" through a cp.async ring, "wgmma_tma" through a TMA ring) where
+the row strides, the slice start and the pointers are 16-byte aligned, and
+otherwise loads through registers ("fma_scalar", "wgmma_staged").  ``launches`` counts kernel launches (one per call
 under ``vmem``, one per K slice under ``hbm``; the plain version does not
-count).
+count) and ``launches_by_route`` splits them by route.
 """
 from __future__ import annotations
 
@@ -29,11 +34,39 @@ import ctypes
 
 import torch
 
-# kernel launches since the last reset (the caller sets it back to 0)
+# kernel launches since the last reset (the caller sets it back to 0, and
+# every entry of launches_by_route with reset_launches())
 launches = 0
+ROUTES = ("fma_async", "fma_scalar", "wgmma_tma", "wgmma_staged")
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACCUMS = ("vmem", "hbm")
+
+
+def reset_launches() -> None:
+    """Set ``launches`` and every ``launches_by_route`` count to 0."""
+    global launches
+    launches = 0
+    for r in ROUTES:
+        launches_by_route[r] = 0
+
+
+def matmul_route(dtype, K: int, N: int, k0: int = 0,
+                 aligned: bool = True) -> str:
+    """The kernel route of one launch over a (M, K) x (K, N) product's
+    slice starting at ``k0``, with ``aligned`` telling whether both base
+    pointers are 16-byte aligned.  Both types take their fast route where
+    the row strides (K and N elements) and the slice start are multiples of
+    16 bytes, as 16-byte cp.async and TMA boxes need: float32 "fma_async",
+    else "fma_scalar"; bfloat16 "wgmma_tma", else "wgmma_staged".  A
+    documented choice of type and layout, never a reaction to a failed
+    build or launch."""
+    item = 4 if dtype == torch.float32 else 2
+    fast = aligned and all((n * item) % 16 == 0 for n in (K, N, k0))
+    if dtype == torch.float32:
+        return "fma_async" if fast else "fma_scalar"
+    return "wgmma_tma" if fast else "wgmma_staged"
 
 
 def matmul_ref(a, b, out_dtype=None):
@@ -102,7 +135,7 @@ def _lib():
 
     fn = build.load("matmul").matmul
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -128,13 +161,17 @@ def matmul(a, b, *, block=(256, 256, 256), accum: str = "vmem",
     hbm = accum == "hbm"
     c = (torch.zeros((M, N), dtype=torch.float32, device=a.device) if hbm
          else torch.empty((M, N), dtype=out_dtype, device=a.device))
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     fn = _lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         for k0, k1 in k_slices(K, block, accum):
-            err = fn(_CODES[a.dtype], _CODES[c.dtype], int(hbm), a.data_ptr(),
-                     b.data_ptr(), c.data_ptr(), M, N, K, k0, k1, stream)
+            route = matmul_route(a.dtype, K, N, k0, aligned)
+            err = fn(ROUTES.index(route), _CODES[a.dtype], _CODES[c.dtype],
+                     int(hbm), a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N,
+                     K, k0, k1, stream)
             if err != 0:
                 raise RuntimeError(f"matmul launch failed: CUDA error {err}")
             launches += 1
+            launches_by_route[route] += 1
     return c.to(out_dtype) if hbm else c

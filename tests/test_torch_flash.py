@@ -13,8 +13,12 @@ kernel build helpers.
 - ``kernels.build``: the library name's hash follows the source, and
   ``build_all`` runs one compiler per source at once and reports the
   failing source's output (with a stand-in compiler, as there is no nvcc).
-- A ``gpu`` test holding the CUDA kernel against the plain version; it skips
-  where there is no card.
+- ``flash_variant``, the wrapper's choice of kernel variant from dtype and
+  head_dim, for each branch; its order of variants against the C source's
+  enum; the per-variant counts stay 0 on the CPU.
+- ``gpu`` tests holding the CUDA kernel's two variants against the plain
+  version, with the per-variant launch counts; they skip where there is no
+  card.
 
 JAX is imported by the ``jx`` fixture, not at module level, so that the
 ``gpu`` tests also run where only PyTorch is installed.
@@ -176,6 +180,47 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 
 # ---------------------------------------------------------------------------
+# the variant choice (pure Python)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 128, "wgmma"),   # qwen2-1.5b's training path
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 96, "simt"),     # no TMA box / wgmma tile for it
+    (torch.bfloat16, 8, "simt"),
+    (torch.float32, 128, "simt"),     # the parity route: no TF32
+    (torch.float32, 64, "simt"),
+])
+def test_flash_variant_follows_dtype_and_head_dim(dtype, hd, want):
+    assert fa.flash_variant(dtype, hd) == want
+
+
+def test_variant_codes_match_the_cuda_source():
+    """The wrapper passes ``VARIANTS.index(variant)``; the C entry reads it
+    as its ``Variant`` enum."""
+    import re
+
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    enum = re.search(r"enum Variant \{([^}]*)\}", src).group(1)
+    codes = {name.strip(): int(val) for name, val in
+             (item.split("=") for item in enum.split(","))}
+    assert codes == {"kSimt": fa.VARIANTS.index("simt"),
+                     "kWgmma": fa.VARIANTS.index("wgmma")}
+
+
+def test_cpu_calls_count_no_variant():
+    fa.reset_launches()
+    assert fa.launches == 0 and set(fa.launches_by_variant.values()) == {0}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _torch(_qkv(6, 2, 64, 64), dtype)
+        fa.flash_attention(q, k, v, bq=32, bk=32)
+    assert fa.launches == 0 and set(fa.launches_by_variant.values()) == {0}
+    fa.launches, fa.launches_by_variant["wgmma"] = 3, 2
+    fa.reset_launches()
+    assert fa.launches == 0 and set(fa.launches_by_variant.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
 # kernels/build.py (no nvcc here: a stand-in compiler script)
 
 
@@ -257,10 +302,58 @@ def test_cuda_kernel_matches_plain_version(dtype, S, G, window):
     q, k, v = (t.cuda() for t in _torch(_qkv(2 * G, 2, S, 128, seed=5),
                                         getattr(torch, dtype)))
     before = fa.launches
+    by_variant = dict(fa.launches_by_variant)
     got = fa.flash_attention(q, k, v, bq=32, bk=32, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    variant = "simt" if dtype == "float32" else "wgmma"
+    assert fa.launches_by_variant == {**by_variant, variant: by_variant[variant] + 1}
     want = fa.flash_attention_ref(q, k, v, window)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [96, 256, 1024])
+@pytest.mark.parametrize("G", [1, 6])
+@pytest.mark.parametrize("window", [None, 40, 512])
+def test_cuda_wgmma_variant_matches_plain_version(hd, S, G, window):
+    """The "wgmma" variant (bf16, hd 64 and 128; S 96 is not a multiple of
+    its 64-key tiles, so TMA zero-fills past S) against
+    ``flash_attention_ref``, tolerance as ``assert_bf16_close``; only its
+    own launch count moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (t.cuda() for t in _torch(_qkv(2 * G, 2, S, hd, seed=S + hd),
+                                        torch.bfloat16))
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant == {"wgmma": 1, "simt": 0}
+    want = fa.flash_attention_ref(q, k, v, window)
+    assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd", [("float32", 64), ("float32", 128),
+                                      ("bfloat16", 32), ("bfloat16", 96)])
+def test_cuda_simt_variant_matches_plain_version(dtype, hd):
+    """float32 stays on the float32-FMA variant (TF32 would change the
+    result), and so does bf16 at a head_dim the wgmma variant does not
+    take: only the simt count moves.  Tolerance: float32 rtol = atol =
+    1e-4; bfloat16 as ``assert_bf16_close``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (t.cuda() for t in _torch(_qkv(12, 2, 256, hd, seed=hd),
+                                        getattr(torch, dtype)))
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, window=40)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant == {"wgmma": 0, "simt": 1}
+    want = fa.flash_attention_ref(q, k, v, 40)
     if dtype == "float32":
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:

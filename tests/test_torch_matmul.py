@@ -8,13 +8,17 @@ against the JAX package.
   and linearity.  Tolerance as there: 2e-4 (float32), 2e-2 (bfloat16).
 - ``k_slices``: the ``hbm`` policy's passes over C are the TPU kernel's
   ``Kp // bk`` K steps.
+- ``matmul_route``, the wrapper's choice of load route per launch from the
+  dtype, the row strides, the slice start and the pointers' alignment, for
+  each branch; its order of routes against the C source's enum.
 - ``core.sweep`` and ``core.memory_modes``: ``SweepCell.n``,
   ``factorizations``, ``tiling_grid``, ``MODES``/``apply`` equal JAX's;
   ``measured_gflops(..., device="cpu")`` sizes every point as JAX does and
   both engines compute ``matmul_ref``'s product.
 - ``repro_torch.benchmarks.run --device cpu --small`` prints the CSV.
-- ``gpu`` tests holding the CUDA kernel against the plain version; they
-  skip where there is no card.
+- ``gpu`` tests holding the CUDA kernel's four routes against the plain
+  version, with the per-route launch counts; they skip where there is no
+  card.
 
 JAX is imported by a fixture, not at module level, so that the ``gpu``
 tests also run where only PyTorch is installed.
@@ -180,6 +184,62 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
 
 
 # ---------------------------------------------------------------------------
+# the route choice (pure Python)
+
+
+@pytest.mark.parametrize("dtype,K,N,k0,aligned,want", [
+    (torch.float32, 4096, 4096, 0, True, "fma_async"),    # the sweep
+    (torch.float32, 1500, 700, 256, True, "fma_async"),
+    (torch.float32, 130, 70, 0, True, "fma_scalar"),      # 520 and 280 B rows
+    (torch.float32, 1024, 30, 0, True, "fma_scalar"),     # N row not 16-byte
+    (torch.float32, 30, 1024, 0, True, "fma_scalar"),     # K row not 16-byte
+    (torch.float32, 512, 128, 30, True, "fma_scalar"),    # slice start at 120 B
+    (torch.float32, 512, 128, 40, True, "fma_async"),     # ... at 160 B
+    (torch.float32, 4096, 4096, 0, False, "fma_scalar"),  # a pointer off 16 B
+    (torch.bfloat16, 4096, 4096, 0, True, "wgmma_tma"),
+    (torch.bfloat16, 512, 128, 0, True, "wgmma_tma"),
+    (torch.bfloat16, 512, 128, 40, True, "wgmma_tma"),    # box start at 80 B
+    (torch.bfloat16, 512, 128, 30, True, "wgmma_staged"),  # ... at 60 B
+    (torch.bfloat16, 130, 70, 0, True, "wgmma_staged"),   # 260 B rows
+    (torch.bfloat16, 1500, 700, 0, True, "wgmma_staged"),  # 3000 B rows
+    (torch.bfloat16, 1504, 700, 0, True, "wgmma_staged"),  # 1400 B rows of B
+    (torch.bfloat16, 1504, 704, 0, True, "wgmma_tma"),
+    (torch.bfloat16, 4096, 4096, 0, False, "wgmma_staged"),
+])
+def test_matmul_route_follows_dtype_and_layout(dtype, K, N, k0, aligned, want):
+    assert mm.matmul_route(dtype, K, N, k0, aligned) == want
+
+
+def test_route_codes_match_the_cuda_source():
+    """The wrapper passes ``ROUTES.index(route)``; the C entry reads it as
+    its ``Route`` enum."""
+    import re
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "matmul.cu").read_text()
+    enum = re.search(r"enum Route \{([^}]*)\}", src).group(1)
+    codes = {name.strip(): int(val) for name, val in
+             (item.split("=") for item in enum.split(","))}
+    assert codes == {"kFmaAsync": mm.ROUTES.index("fma_async"),
+                     "kFmaScalar": mm.ROUTES.index("fma_scalar"),
+                     "kWgmmaTma": mm.ROUTES.index("wgmma_tma"),
+                     "kWgmmaStaged": mm.ROUTES.index("wgmma_staged")}
+
+
+def test_cpu_calls_count_no_route():
+    mm.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = torch.randn(40, 24).to(dtype), torch.randn(24, 16).to(dtype)
+        for accum in mm.ACCUMS:
+            tops.matmul(a, b, accum=accum, block=(8, 8, 8))
+    assert mm.launches == 0 and set(mm.launches_by_route.values()) == {0}
+    mm.launches, mm.launches_by_route["wgmma_tma"] = 5, 5
+    mm.reset_launches()
+    assert mm.launches == 0 and set(mm.launches_by_route.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
 # core.sweep and core.memory_modes
 
 
@@ -274,9 +334,13 @@ def test_cuda_kernel_matches_plain_version(shape, dtype, accum):
     ta, tb, _, _ = _operands(M, K, N, dtype, seed=3)
     ta, tb = ta.cuda(), tb.cuda()
     before = mm.launches
+    route = mm.matmul_route(ta.dtype, K, N)
+    by_route = dict(mm.launches_by_route)
     got = mm.matmul(ta, tb, block=(32, 64, 32), accum=accum)
     torch.cuda.synchronize()
-    assert mm.launches == before + mm.k_passes(K, (32, 64, 32), accum)
+    passes = mm.k_passes(K, (32, 64, 32), accum)
+    assert mm.launches == before + passes
+    assert mm.launches_by_route == {**by_route, route: by_route[route] + passes}
     want = mm.matmul_ref(ta, tb)
     spread = math.sqrt(K) * float(ta.float().std()) * float(tb.float().std())
     tol = (dict(rtol=1e-4, atol=2 ** -16 * spread) if dtype == "float32"
@@ -294,3 +358,48 @@ def test_cuda_kernel_out_dtype():
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got, mm.matmul_ref(a, b, torch.bfloat16),
                                    rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [(256, 256, 256), (32, 40, 32)])
+@pytest.mark.parametrize("accum", ["vmem", "hbm"])
+@pytest.mark.parametrize("shape,route", [
+    ((256, 512, 128), "wgmma_tma"), ((4096, 4096, 4096), "wgmma_tma"),
+    ((100, 130, 70), "wgmma_staged"), ((1000, 1500, 700), "wgmma_staged")])
+def test_cuda_bf16_routes_match_plain_version(shape, route, accum, block):
+    """bf16 through both wgmma load routes, both policies; block (32, 40, 32)
+    gives ``hbm`` slices 40 deep, not a multiple of the 64-deep k-tile, each
+    masked at its own end.  Tolerance as above: one bf16 rounding unit
+    (rtol 2^-7) with atol 2^-12 x sqrt(K) |a| |b|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, K, N = shape
+    ta, tb, _, _ = _operands(M, K, N, "bfloat16", seed=4)
+    ta, tb = ta.cuda(), tb.cuda()
+    mm.reset_launches()
+    got = mm.matmul(ta, tb, block=block, accum=accum)
+    torch.cuda.synchronize()
+    assert mm.launches_by_route[route] == mm.launches == mm.k_passes(K, block, accum)
+    want = mm.matmul_ref(ta, tb)
+    spread = math.sqrt(K) * float(ta.float().std()) * float(tb.float().std())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -12 * spread)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accum", ["vmem", "hbm"])
+@pytest.mark.parametrize("shape", [(256, 512, 128), (100, 130, 70)])
+def test_cuda_bf16_inputs_float32_output(shape, accum):
+    """bf16 inputs, float32 output: the float32 sum is kept, not rounded to
+    bf16 — rtol 1e-4 with atol 2^-16 x sqrt(K) |a| |b|, the float32
+    tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, K, N = shape
+    ta, tb, _, _ = _operands(M, K, N, "bfloat16", seed=6)
+    ta, tb = ta.cuda(), tb.cuda()
+    got = mm.matmul(ta, tb, accum=accum, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    want = mm.matmul_ref(ta, tb, torch.float32)
+    spread = math.sqrt(K) * float(ta.float().std()) * float(tb.float().std())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2 ** -16 * spread)
