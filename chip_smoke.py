@@ -9,17 +9,25 @@ Phases (every check asserts; any failure exits non-zero):
    two-phase decode, training, RMSNorm and matmul kernels), one ``nvcc`` per
    source started together, and print ptxas's register and spill report;
    count the wgmma (HGMMA) and TMA (UTMALDG) instructions in the
-   flash_attention and matmul libraries' SASS and fail if either is 0.
+   flash_attention and matmul libraries' SASS and the tensor-core (HMMA)
+   instructions in ragged_paged_flash's, and fail if any is 0.
 3. Each kernel against its plain PyTorch version at full-width shapes.
    Tolerance: f32 outputs rtol = atol = 1e-4; bf16 outputs atol = 2e-2,
-   compared in f32, and for flash_attention and paged_flash_decode also
-   each output row within 1e-2 of its norm.
+   compared in f32, and for the attention kernels also each output row
+   within 1e-2 of its norm.  ``device_ms`` is the device's own time per
+   call (``torch.profiler``, CUDA activity), beside the CUDA-event time of
+   a loop of calls, which includes the wrapper's host path where that is
+   longer than the kernel.
    - ragged_paged_flash (qwen2-1.5b: kvH 2, G 6, hd 128; page 16;
      cache_len 2048; a 256-token mixed pack of decode and prefill tokens
      from 8 slots, with unmapped (sentinel) pages and lens == 0 rows), for
-     q in {f32, bf16} x pools in {f32, bf16, int8}; then CUDA-event times
-     of the kernel and the plain version at a steady decode tick and a
-     mixed tick, beside the byte/operation bound.
+     q in {f32, bf16} x pools in {f32, bf16, int8}, each case's variant
+     (``ragged_variant``: "mma" for bf16 q over bf16/int8 pools, "simt"
+     otherwise) printed; then CUDA-event and device times of the kernel
+     and event times of the plain version at a steady decode tick and a
+     mixed tick, warm (the same pools every call) and cold (rotating over
+     copies of the pools that together exceed the 50 MB L2), beside the
+     byte/operation bound.
    - flash_attention at the training shape (q (24, 4096, 128) over k/v
      (4, 4096, 128): batch 2 x 2 KV heads x 6 query heads each) in f32 and
      bf16, windowed (window 512, bf16), and a small odd case (S 96, G 3,
@@ -42,8 +50,9 @@ Phases (every check asserts; any failure exits non-zero):
      passes).
    - rmsnorm at the serving pack (256 x 1536) and the training
      activations (8192 x 1536), f32 and bf16, against its plain version and
-     ``torch.nn.functional.rms_norm`` (f32: 1e-5; bf16: rtol 2^-7); times
-     beside the byte bound.  Then the norm layer's kernel route
+     ``torch.nn.functional.rms_norm`` (f32: 1e-5; bf16: rtol 2^-7), each
+     case's route (``rmsnorm_plan``) printed; event and device times of
+     both beside the byte bound.  Then the norm layer's kernel route
      (``norms.rmsnorm(use_kernel=True)``, which no model path sets, as in
      JAX) at both shapes: its own launch count.
 4. Full-width qwen2-1.5b (28 layers, seed-0 random weights, bf16
@@ -51,9 +60,11 @@ Phases (every check asserts; any failure exits non-zero):
    two share a 300-token prefix, so prefix hits and copy-on-write run —
    once with bf16 pools and once with int8 pools.  Every request returns
    32 tokens, logits stay finite, the kernel launches once per layer per
-   tick, and the pools never move.  CUDA events around every kernel launch
-   give the kernel's device time per tick; a repeat of the bf16 run under
-   ``torch.profiler`` gives the device's busy time per tick by kernel.
+   tick, every launch through the "mma" variant, and the pools never move.
+   CUDA events around every kernel launch bracket the kernel's time per
+   tick; a repeat of the bf16 run under ``torch.profiler`` gives the
+   device's busy time per tick by kernel and the serving kernel's device
+   time per launch.
    Then the same workload through the two-phase engine (``ragged=False``:
    batched prefill chunks, then decode ticks through paged_flash_decode),
    bf16 and int8 pools and a profiled bf16 repeat: the kernel launches
@@ -90,6 +101,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -105,6 +117,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+L2_BYTES = 50 * 2 ** 20  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 
 KERNELS = {
@@ -142,6 +155,27 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """Device time per call of ``fn``: ``iters`` calls after ``warmup``
+    under ``torch.profiler`` (CUDA activity only), the summed device time of
+    every kernel they ran over ``iters``.  None where the profiler recorded
+    no device time (not measured)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_us(e) for e in prof.key_averages())
+    return total / 1e3 / iters if total > 0 else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.5f} ms"
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -251,27 +285,37 @@ def bound(args) -> tuple:
     return roof(nbytes, 4.0 * float(lens_c.sum()) * G * kvH * hd, q.dtype)
 
 
+# the instructions each library's SASS must hold: wgmma and TMA tile loads
+# for flash and matmul, mma.sync for the serving kernel
+SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"), "matmul": ("HGMMA", "UTMALDG"),
+            "ragged_paged_flash": ("HMMA",)}
+
+
 def sass_phase(card: str) -> dict:
-    """Counts the wgmma (HGMMA) and TMA tile-load (UTMALDG) instructions in
-    the built flash_attention and matmul libraries (``cuobjdump
-    --dump-sass``); fails if either count is 0 in either library."""
+    """Counts the instructions ``SASS_OPS`` names in each built library
+    (``cuobjdump --dump-sass``); fails if any count is 0."""
     from repro_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
-    for name in ("flash_attention", "matmul"):
+    for name, ops in SASS_OPS.items():
         sass = subprocess.run([tool, "--dump-sass", str(build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
-        counts = {op: len(re.findall(rf"\b{op}\b", sass))
-                  for op in ("HGMMA", "UTMALDG")}
-        print(f"SASS of {name} (built for {card}): {counts['HGMMA']} HGMMA, "
-              f"{counts['UTMALDG']} UTMALDG instructions")
-        assert all(counts.values()), f"{name} has no tensor-core or TMA code: {counts}"
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+        print(f"SASS of {name} (built for {card}): " + ", ".join(
+            f"{n} {op}" for op, n in counts.items()) + " instructions")
+        assert all(counts.values()), f"{name} lacks tensor-core or TMA code: {counts}"
         out[name] = counts
     return out
 
 
 def check_kernel(card: str) -> dict:
+    """Kernel 1 against its plain version on the mixed pack, every (q,
+    pool) type pair, each through the variant ``ragged_variant`` names.  A
+    bf16 output is held to atol 2e-2 and each output row to BF16_ROW_RTOL of
+    its norm; ``lens == 0`` rows exactly zero.  Then times at the decode and
+    the mixed tick in bf16: CUDA events over a loop of calls, the device's
+    own time per call (``device_ms``), both warm and cold."""
     from repro_torch.kernels import ragged_paged_flash as rpf
 
     dev = torch.device("cuda")
@@ -280,8 +324,11 @@ def check_kernel(card: str) -> dict:
     for q_dt in (torch.float32, torch.bfloat16):
         for kv_dt in (torch.float32, torch.bfloat16, torch.int8):
             args = kernel_inputs(pack, q_dt, kv_dt, dev)
+            rpf.reset_launches()
             got = rpf.ragged_paged_flash(*args[:6], ks=args[6], vs=args[7])
             torch.cuda.synchronize()
+            variant = ran(rpf.launches_by_variant)
+            assert variant == rpf.ragged_variant(q_dt, kv_dt, 128), (q_dt, kv_dt)
             want = rpf.ragged_paged_flash_ref(*args[:6], ks=args[6], vs=args[7])
             tol = (dict(rtol=1e-4, atol=1e-4) if q_dt == torch.float32
                    else dict(rtol=0.0, atol=2e-2))
@@ -289,21 +336,46 @@ def check_kernel(card: str) -> dict:
             dead = args[5] == 0
             assert bool((got[dead] == 0).all()), "lens == 0 rows must be zeros"
             err = float((got.float() - want.float()).abs().max())
+            rel = row_rel_err(got, want)
+            if q_dt == torch.bfloat16:
+                assert rel <= BF16_ROW_RTOL, (kv_dt, rel)
+                tol = {**tol, "row_rtol": BF16_ROW_RTOL}
             errs[(q_dt, kv_dt)] = err
-            print(f"kernel vs plain: q {q_dt} pools {kv_dt}: max |err| {err:.3e}"
-                  f" (tol {tol})")
+            print(f"kernel vs plain: q {q_dt} pools {kv_dt}, variant {variant}: "
+                  f"max |err| {err:.3e}, max row |err| / |ref| {rel:.3e} (tol {tol})")
 
     timings = {}
     for kind in ("decode", "mixed"):
         args = kernel_inputs(make_pack(kind), torch.bfloat16, torch.bfloat16, dev)
-        ms = cuda_ms(lambda: rpf.ragged_paged_flash(*args[:6]))
+        call = lambda a=args: rpf.ragged_paged_flash(*a[:6])  # noqa: E731
+        ms = cuda_ms(call)
+        dev_ms = device_ms(call)
         plain = cuda_ms(lambda: rpf.ragged_paged_flash_ref(*args[:6]), iters=10)
         b_ms, b_by = bound(args)
-        timings[kind] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-        print(f"ragged_paged_flash {kind} tick (T=256, bf16 q and pools) on "
-              f"{card}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{b_ms:.5f} ms ({b_by}), share of bound {b_ms / ms:.3f}; "
-              f"library call: none")
+        # cold: rotate over pool copies whose reached pages exceed the L2 twice
+        kv_bytes = kv_reached(args[1], None, args[3], {
+            b: int(args[5][args[4] == b].max()) for b in range(args[3].shape[0])
+            if bool(((args[4] == b) & (args[5] > 0)).any())})[0]
+        n = -(-2 * L2_BYTES // kv_bytes) + 1
+        pools = [(args[1].clone(), args[2].clone()) for _ in range(n)]
+        turn = itertools.count()
+
+        def cold():
+            kp, vp = pools[next(turn) % n]
+            return rpf.ragged_paged_flash(args[0], kp, vp, *args[3:6])
+        cold_ms = cuda_ms(cold, iters=4 * n)
+        cold_dev = device_ms(cold, iters=2 * n)
+        del pools
+        timings[kind] = dict(ms=ms, device_ms=dev_ms, cold_ms=cold_ms,
+                             cold_device_ms=cold_dev, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=b_by)
+        print(f"ragged_paged_flash {kind} tick (T=256, bf16 q and pools, variant "
+              f"{rpf.ragged_variant(torch.bfloat16, torch.bfloat16, 128)}) on "
+              f"{card}: warm: events {ms:.4f} ms, device {fmt_ms(dev_ms)}; cold "
+              f"({n} pool copies, {n * kv_bytes / 1e6:.0f} MB reached in turn): "
+              f"events {cold_ms:.4f} ms, device {fmt_ms(cold_dev)}; plain "
+              f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}), share of bound "
+              f"{b_ms / ms:.3f} (events, warm); library call: none")
     return {"err": errs[(torch.bfloat16, torch.bfloat16)], "timings": timings}
 
 
@@ -500,17 +572,25 @@ def check_rmsnorm(card: str) -> dict:
             torch.testing.assert_close(rn.rmsnorm(x, s_lib.float()).float(),
                                        lib_fn().float(), **tol)
             err = float((got.float() - want.float()).abs().max())
-            ms = cuda_ms(lambda: rn.rmsnorm(x, scale), iters=50)
+            route = rn.rmsnorm_plan(R, 1536, x.element_size())
+            kernel_fn = lambda: rn.rmsnorm(x, scale)  # noqa: E731
+            ms = cuda_ms(kernel_fn, iters=50)
+            dev_ms = device_ms(kernel_fn, iters=50)
             plain = cuda_ms(lambda: rn.rmsnorm_ref(x, scale), iters=20)
             lib = cuda_ms(lib_fn, iters=50)
+            lib_dev = device_ms(lib_fn, iters=50)
             nbytes = 2 * x.numel() * x.element_size() + 1536 * 4
             b_ms, b_by = roof(nbytes, 4.0 * x.numel(), dt)
-            print(f"rmsnorm ({R}, 1536) {dt} on {card}: max |err| {err:.3e} "
-                  f"(tol {tol}); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"F.rms_norm {lib:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                  f"share of bound {b_ms / ms:.4f}")
-            out[(R, dt)] = dict(err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=lib)
+            share = "not measured" if dev_ms is None else f"{b_ms / dev_ms:.4f}"
+            print(f"rmsnorm ({R}, 1536) {dt}, route {route[0]} with {route[1]} "
+                  f"threads a row, on {card}: max |err| {err:.3e} (tol {tol}); "
+                  f"kernel: events {ms:.4f} ms, device {fmt_ms(dev_ms)}; "
+                  f"F.rms_norm: events {lib:.4f} ms, device {fmt_ms(lib_dev)}; "
+                  f"plain {plain:.4f} ms; bound {b_ms:.5f} ms ({b_by}), share "
+                  f"of bound {share} (device)")
+            out[(R, dt)] = dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                                library_device_ms=lib_dev)
     return out
 
 
@@ -648,6 +728,15 @@ def _device_us(evt) -> float:
     return evt.self_cuda_time_total if t is None else t
 
 
+# the CUDA functions of each serving wrapper's launch: the ragged kernel's
+# plan, attention (either variant) and merge kernels; the decode kernel
+SERVE_KERNELS = {
+    "ragged_paged_flash": ("ragged_plan_kernel", "ragged_mma_kernel",
+                           "ragged_simt_kernel", "ragged_merge_kernel"),
+    "paged_flash_decode": ("paged_flash_decode_kernel",),
+}
+
+
 def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False,
                ragged: bool = True) -> dict:
     """Serve the phase-4 workload once, through the ragged engine or, with
@@ -698,6 +787,8 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False,
         else contextlib.nullcontext())
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    if ragged:
+        rpf.reset_launches()
     setattr(kmod, kname, timed_kernel)
     try:
         with prof:
@@ -719,6 +810,8 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False,
     kernel_ticks = st["ragged_ticks"] if ragged else st["decode_ticks"]
     assert st["kernel_launches"] == cfg.n_layers * kernel_ticks, st
     assert len(spans) == st["kernel_launches"], (len(spans), st)
+    if ragged:  # bf16 activations over bf16 or int8 pools: the tensor cores
+        assert rpf.launches_by_variant["mma"] == len(spans), rpf.launches_by_variant
     assert [t.data_ptr() for t in eng.pool_tensors()] == ptrs, "pools moved"
     assert eng.pool.pages_in_use == 0 and eng.reclaimable_pages == eng.n_pages
     toks = sum(len(results[h]) for h in handles)
@@ -757,6 +850,13 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False,
                   f"time; top kernels by device time:")
             for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
                 print(f"    {ms:9.3f} ms  {ms / busy:.3f}  {name[:110]}")
+            k_ms = sum(ms for name, ms in by_name.items()
+                       if any(k in name for k in SERVE_KERNELS[kname]))
+            out["kernel_device_ms"] = k_ms
+            print(f"  {kname} device time (profiler, all its kernels): {k_ms:.3f} "
+                  f"ms over {len(spans)} launches = {k_ms / len(spans):.4f} ms per "
+                  f"launch, {k_ms / busy:.3f} of the busy time (CUDA events in "
+                  f"this run: {kernel_ms / len(spans):.4f} ms per launch)")
     return out
 
 
@@ -1124,7 +1224,7 @@ def main() -> int:
     cfg = get_config("qwen2-1.5b")  # FULL, bf16 activations
     params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda")
-    rpf.launches = 0  # count only the main path's launches
+    rpf.reset_launches()  # count only the main path's launches
     plain = serve_full(params, cfg, None, card)
     launches = rpf.launches
     assert launches > 0, "the serving path never launched the kernel"
@@ -1173,7 +1273,8 @@ def main() -> int:
 
     def entry(name, launches, res):
         return {"name": name, **KERNELS[name], "launches": launches,
-                "max_abs_err": res["err"], **{k: res[k] for k in keys}}
+                "max_abs_err": res["err"], **{k: res[k] for k in keys},
+                **({"device_ms": res["device_ms"]} if "device_ms" in res else {})}
 
     print(card)
     print(json.dumps({"kernels": [

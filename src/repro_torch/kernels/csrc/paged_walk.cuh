@@ -1,9 +1,9 @@
-// The page walk shared by the two paged-attention kernels for Hopper
-// (sm_90a): ragged_paged_flash.cu (a flat pack of tokens from any slots) and
-// paged_flash_decode.cu (one decode token per slot).  Both resolve a query
-// row to a block-table row and a visible length, then run the same online
-// softmax over that row's pages; only that resolution differs, so it stays
-// in the kernels and everything after it lives here.
+// The page walk of the two-phase decode kernel for Hopper (sm_90a),
+// paged_flash_decode.cu (one decode token per slot), its only user:
+// ragged_paged_flash.cu, which shared it until it was rebuilt with query
+// tiles, split-K and tensor-core scores, no longer includes it.  The kernel
+// resolves a query row to a block-table row and a visible length, then
+// runs the online softmax below over that row's pages.
 //
 // paged_attend: one thread block holds the G query heads of one KV head
 // (q_row, (G, hd)) and walks the ceil(len/page) visible pages of its

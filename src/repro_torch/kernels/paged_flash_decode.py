@@ -24,6 +24,9 @@ NEG_INF = -1e30
 # kernel launches since the last reset (the caller sets it back to 0)
 launches = 0
 
+_MAX_HEAD_DIM = 256
+_MAX_SMEM = 227 * 1024  # bytes of shared memory one Hopper block may use
+
 
 def paged_flash_decode_ref(q, kp, vp, ptab, lens, ks=None, vs=None):
     """Plain PyTorch decode attention: gather every slot's context through
@@ -62,6 +65,19 @@ def _check(q, kp, vp, ptab, lens, ks, vs):
     _rpf.check_same_device_contiguous([q, kp, vp, ptab, lens, ks, vs])
 
 
+def _smem_bytes(G: int, hd: int, page: int) -> int:
+    # must match paged::smem_bytes in csrc/paged_walk.cuh
+    return 4 * (2 * G * hd + 2 * page * hd + G * page + 3 * G)
+
+
+def check_kernel_fits(q, kp) -> None:
+    """Refuse shapes the page walk's shared memory cannot hold."""
+    _, _, G, hd = q.shape
+    if hd > _MAX_HEAD_DIM or _smem_bytes(G, hd, kp.shape[1]) > _MAX_SMEM:
+        raise ValueError(f"head_dim {hd} / page {kp.shape[1]} / G {G} exceed "
+                         f"the kernel's shared memory")
+
+
 def _lib():
     from repro_torch.kernels import build
 
@@ -89,7 +105,7 @@ def paged_flash_decode(q, kp, vp, ptab, lens, ks=None, vs=None):
         return paged_flash_decode_ref(q, kp, vp, ptab, lens, ks, vs)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    _rpf.check_kernel_fits(q, kp)
+    check_kernel_fits(q, kp)
     B, kvH, G, hd = q.shape
     npages, page = kp.shape[0], kp.shape[1]
     out = torch.empty_like(q)

@@ -5,9 +5,14 @@ Replaces ``repro/kernels/flash_attention.py:ragged_paged_flash`` (the Pallas
 TPU kernel).  ``ragged_paged_flash`` launches the hand-written kernel in
 ``csrc/ragged_paged_flash.cu`` for CUDA tensors, and runs
 ``ragged_paged_flash_ref`` only for CPU tensors; there is no fallback from
-one to the other.  ``launches`` counts kernel launches (the plain version
-does not count), so a run can show that its attention went through the
-kernel.
+one to the other.  The kernel has two variants, chosen by
+``ragged_variant`` from dtypes, head_dim and alignment alone: "mma"
+(tensor cores, ``mma.sync`` bf16) for bfloat16 q over bfloat16 or int8
+pools at head_dim 64 or 128, "simt" (float32 FMA) for everything else —
+float32 q is the parity route, where bf16 products would change the
+result.  One call runs three kernels (plan, attention, merge) and counts
+as one launch: ``launches`` counts calls that launched (the plain version
+does not count), ``launches_by_variant`` splits them by variant.
 """
 from __future__ import annotations
 
@@ -17,13 +22,49 @@ import torch
 
 NEG_INF = -1e30
 
-# kernel launches since the last reset (the caller sets it back to 0)
+# kernel launches since the last reset (the caller sets it back to 0, and
+# every entry of launches_by_variant with reset_launches())
 launches = 0
+VARIANTS = ("simt", "mma")
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_HEAD_DIM = 256
-_MAX_SMEM = 227 * 1024  # bytes of shared memory one Hopper block may use
+_MIN_SPLIT_KEYS = 128  # keys of context one block takes at least
+_MAX_SPLITS = 16
+
+
+def reset_launches() -> None:
+    """Set ``launches`` and every ``launches_by_variant`` count to 0."""
+    global launches
+    launches = 0
+    for v in VARIANTS:
+        launches_by_variant[v] = 0
+
+
+def ragged_variant(q_dtype, kv_dtype, hd: int, aligned: bool = True) -> str:
+    """The kernel variant for q of ``q_dtype`` over pools of ``kv_dtype``
+    at head_dim ``hd``: "mma" for bfloat16 q over bfloat16 or int8 pools
+    at hd 64 or 128 with q and the pools 16-byte aligned (``aligned``),
+    "simt" otherwise.  A documented choice of type and shape, never a
+    reaction to a failed build or launch."""
+    mma = (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+           and hd in (64, 128) and aligned)
+    return "mma" if mma else "simt"
+
+
+def split_keys(S: int) -> int:
+    """Keys of a block-table row (``S`` = pps * page) one block takes: at
+    least 128, a multiple of 64, and at most 16 splits a row (the merge
+    kernel's limit)."""
+    per = -(-S // _MAX_SPLITS)
+    return max(_MIN_SPLIT_KEYS, -(-per // 64) * 64)
+
+
+def n_splits(S: int) -> int:
+    """Split-K blocks a row of ``S`` keys is cut into (at least 1)."""
+    return max(1, -(-S // split_keys(S)))
 
 
 def ragged_paged_flash_ref(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
@@ -86,14 +127,6 @@ def check_same_device_contiguous(tensors) -> None:
         raise ValueError("all inputs must be contiguous")
 
 
-def check_kernel_fits(q, kp) -> None:
-    """Refuse shapes the kernel's shared memory cannot hold."""
-    _, _, G, hd = q.shape
-    if hd > _MAX_HEAD_DIM or _smem_bytes(G, hd, kp.shape[1]) > _MAX_SMEM:
-        raise ValueError(f"head_dim {hd} / page {kp.shape[1]} / G {G} exceed "
-                         f"the kernel's shared memory")
-
-
 def _check(q, kp, vp, ptab, slot, lens, ks, vs):
     check_pools(q, kp, vp, ks, vs)
     T = q.shape[0]
@@ -105,19 +138,14 @@ def _check(q, kp, vp, ptab, slot, lens, ks, vs):
     check_same_device_contiguous([q, kp, vp, ptab, slot, lens, ks, vs])
 
 
-def _smem_bytes(G: int, hd: int, page: int) -> int:
-    # must match paged::smem_bytes in csrc/paged_walk.cuh
-    return 4 * (2 * G * hd + 2 * page * hd + G * page + 3 * G)
-
-
 def _lib():
     from repro_torch.kernels import build
 
     lib = build.load("ragged_paged_flash")
     fn = lib.ragged_paged_flash
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 11
+                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -130,29 +158,43 @@ def ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
     contiguous); ks, vs: (n_pages, page, kvH) float32 scale pools, for int8
     pools only; ptab: (B, pps) int32 block table (entries >= n_pages are
     unmapped); slot, lens: (T,) int32 — each token's slot and visible length
-    (``q_pos + 1``; 0 for an invalid token, whose output is zeros).
-    Returns (T, kvH, G, hd) in q's dtype."""
+    (``q_pos + 1``; 0 for an invalid token, whose output is zeros).  Tokens
+    may come in any order; a slot's tokens in one run are fastest.
+    Returns (T, kvH, G, hd) in q's dtype.  Makes no host synchronisation:
+    the grid and the scratch sizes follow from shapes alone."""
     global launches
     _check(q, kp, vp, ptab, slot, lens, ks, vs)
     if q.device.type == "cpu":
         return ragged_paged_flash_ref(q, kp, vp, ptab, slot, lens, ks, vs)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    check_kernel_fits(q, kp)
     T, kvH, G, hd = q.shape
     npages, page = kp.shape[0], kp.shape[1]
+    B, pps = ptab.shape
+    if hd > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} exceeds the kernel's {_MAX_HEAD_DIM}")
     out = torch.empty_like(q)
-    if T == 0:
+    if out.numel() == 0:
         return out
+    if npages == 0 or page == 0 or B == 0:
+        raise ValueError("the pools and the block table must not be empty")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, kp, vp))
+    variant = ragged_variant(q.dtype, kp.dtype, hd, aligned)
+    S = pps * page
+    ns = n_splits(S)
+    tiles = torch.empty(T + 1, dtype=torch.int32, device=q.device)
+    ws = (torch.empty(ns * T * kvH * G * (hd + 2), dtype=torch.float32,
+                      device=q.device) if ns > 1 else None)
     fn = _lib()
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_Q_CODES[q.dtype], _KV_CODES[kp.dtype], ptr(q), ptr(kp),
-                 ptr(vp), ptr(ks), ptr(vs), ptr(ptab), ptr(slot), ptr(lens),
-                 ptr(out), T, kvH, G, hd, page, npages, ptab.shape[0],
-                 ptab.shape[1], hd ** -0.5, stream)
+        err = fn(VARIANTS.index(variant), _Q_CODES[q.dtype], _KV_CODES[kp.dtype],
+                 ptr(q), ptr(kp), ptr(vp), ptr(ks), ptr(vs), ptr(ptab),
+                 ptr(slot), ptr(lens), ptr(out), ptr(tiles), ptr(ws), T, kvH,
+                 G, hd, page, npages, B, pps, split_keys(S), hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_flash launch failed: CUDA error {err}")
     launches += 1
+    launches_by_variant[variant] += 1
     return out

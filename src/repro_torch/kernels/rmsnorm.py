@@ -5,9 +5,14 @@ Replaces ``repro/kernels/rmsnorm.py:rmsnorm`` (the Pallas TPU kernel):
 statistics, the output in x's dtype.  ``rmsnorm`` launches the hand-written
 kernel in ``csrc/rmsnorm.cu`` for CUDA tensors and runs ``rmsnorm_ref``
 only for CPU tensors; there is no fallback from one to the other.
-``launches`` counts kernel launches (the plain version does not count).
-The TPU kernel's ``block_rows`` only tiles its grid (rows are padded to
-it), which changes no result; the CUDA kernel takes one row per warp.
+``launches`` counts kernel launches (the plain version does not count),
+``launches_by_route`` splits them by route.  ``rmsnorm_plan`` picks the
+route and the threads per row from R, D, the type and the alignment alone:
+16-byte vector loads with the row held in registers ("cached"), the same
+loads reading the row twice where it is too wide for the register cache
+("reread"), or scalar loads where rows are not 16-byte aligned
+("scalar").  The TPU kernel's ``block_rows`` only tiles its grid (rows are
+padded to it), which changes no result.
 """
 from __future__ import annotations
 
@@ -15,10 +20,44 @@ import ctypes
 
 import torch
 
-# kernel launches since the last reset (the caller sets it back to 0)
+# kernel launches since the last reset (the caller sets it back to 0, and
+# every entry of launches_by_route with reset_launches())
 launches = 0
+ROUTES = ("scalar", "cached", "reread")
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BLOCK = 256  # threads of a block (csrc/rmsnorm.cu kBlock)
+_CACHE_VECS = 8  # 16-byte vectors a thread holds (kCacheVecs)
+_FILL_BLOCKS = 2 * 132  # two blocks for each of an H100's 132 SMs
+
+
+def reset_launches() -> None:
+    """Set ``launches`` and every ``launches_by_route`` count to 0."""
+    global launches
+    launches = 0
+    for r in ROUTES:
+        launches_by_route[r] = 0
+
+
+def rmsnorm_plan(R: int, D: int, itemsize: int, aligned: bool = True):
+    """(route, threads per row) for R rows of D values of ``itemsize``
+    bytes.  Rows not 16-byte aligned (D * itemsize not a multiple of 16, or
+    a pointer off alignment: ``aligned`` False) take "scalar" (a warp per
+    row).  Rows of more than 256 x 8 vectors take "reread" (a block per
+    row).  Otherwise "cached", with the fewest threads per row (32, 64, 128
+    or 256) that hold the row in 8 vectors a thread and, where the rows
+    allow, give the grid at least ``_FILL_BLOCKS`` blocks."""
+    if not aligned or (D * itemsize) % 16:
+        return "scalar", 32
+    nv = D * itemsize // 16
+    if nv > _BLOCK * _CACHE_VECS:
+        return "reread", _BLOCK
+    tpr = 32
+    while tpr < _BLOCK and (-(-nv // tpr) > _CACHE_VECS or (
+            -(-R // (_BLOCK // tpr)) < _FILL_BLOCKS and tpr < nv)):
+        tpr *= 2
+    return "cached", tpr
 
 
 def rmsnorm_ref(x, scale, eps: float = 1e-6):
@@ -48,7 +87,7 @@ def _lib():
 
     fn = build.load("rmsnorm").rmsnorm
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -68,12 +107,15 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     out = torch.empty_like(x)
     if R == 0 or D == 0:
         return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, out))
+    route, tpr = rmsnorm_plan(R, D, x.element_size(), aligned)
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_CODES[x.dtype], x.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), R, D, float(eps), stream)
+        err = fn(ROUTES.index(route), tpr, _CODES[x.dtype], x.data_ptr(),
+                 scale.data_ptr(), out.data_ptr(), R, D, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"rmsnorm launch failed: CUDA error {err}")
     launches += 1
+    launches_by_route[route] += 1
     return out

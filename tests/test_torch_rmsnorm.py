@@ -8,8 +8,12 @@ against the JAX package.
   (float32) and 2e-2 (bfloat16).  Scale invariance as a property.
 - ``models.layers.norms.rmsnorm(use_kernel=True)`` equals the plain path on
   the CPU, and equals JAX's kernel route.
-- A ``gpu`` test holding the CUDA kernel against the plain version; it
-  skips where there is no card.
+- ``rmsnorm_plan`` (route and threads per row), the C entry's route
+  codes, the per-route counts staying 0 on the CPU, and the wrapper on a
+  misaligned contiguous slice.
+- ``gpu`` tests holding the CUDA kernel against the plain version (every
+  route, odd and wide rows, a single row, a misaligned slice); they skip
+  where there is no card.
 
 JAX is imported by a fixture, not at module level, so that the ``gpu``
 test also runs where only PyTorch is installed.
@@ -23,6 +27,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 from _hypothesis_compat import given, settings, st  # noqa: E402
 
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.models.layers import norms  # noqa: E402
@@ -113,6 +118,71 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
     assert rn.launches == before
 
 
+@pytest.mark.parametrize("R,D,itemsize,aligned,want", [
+    (8192, 1536, 2, True, ("cached", 32)),   # training activations: a warp a row
+    (256, 1536, 2, True, ("cached", 256)),   # serving pack: a block a row
+    (8192, 1536, 4, True, ("cached", 64)),   # 384 vectors: 6 a thread
+    (256, 1536, 4, True, ("cached", 256)),
+    (1, 1536, 2, True, ("cached", 256)),
+    (2, 8192, 2, True, ("cached", 256)),
+    (4, 96, 4, True, ("cached", 32)),        # 24 vectors: one warp is enough
+    (4, 32768, 4, True, ("reread", 256)),    # 8192 vectors: past the cache
+    (5, 333, 4, True, ("scalar", 32)),       # rows not a multiple of 16 bytes
+    (5, 1001, 2, True, ("scalar", 32)),
+    (4, 1536, 4, False, ("scalar", 32)),     # a pointer off alignment
+])
+def test_rmsnorm_plan(R, D, itemsize, aligned, want):
+    assert rn.rmsnorm_plan(R, D, itemsize, aligned) == want
+
+
+def test_route_codes_match_the_cuda_source():
+    """The wrapper passes ``ROUTES.index(route)``; the C entry reads it as
+    its ``Route`` enum."""
+    import re
+
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+    enum = re.search(r"enum Route \{([^}]*)\}", src).group(1)
+    codes = {name.strip(): int(val) for name, val in
+             (item.split("=") for item in enum.split(","))}
+    assert codes == {"kScalar": rn.ROUTES.index("scalar"),
+                     "kCached": rn.ROUTES.index("cached"),
+                     "kReread": rn.ROUTES.index("reread")}
+
+
+def _misaligned(R, D, dtype, seed=3):
+    """A contiguous (R, D) view that starts one element into its storage:
+    not 16-byte aligned."""
+    rng = np.random.RandomState(seed)
+    base = torch.from_numpy(rng.standard_normal(1 + R * D).astype(np.float32))
+    x = base.to(getattr(torch, dtype))[1:].view(R, D)
+    s = torch.from_numpy(rng.standard_normal(D).astype(np.float32))
+    return x, s
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrapper_on_misaligned_contiguous_slice(dtype):
+    """A 1-D slice is contiguous yet off 16-byte alignment: the wrapper
+    takes it (the plain version on the CPU), and the plan sends such rows
+    to the scalar route."""
+    x, s = _misaligned(4, 64, dtype)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    rn.reset_launches()
+    torch.testing.assert_close(tops.rmsnorm(x, s), rn.rmsnorm_ref(x, s),
+                               rtol=0, atol=0)
+    assert rn.launches == 0 and set(rn.launches_by_route.values()) == {0}
+    assert rn.rmsnorm_plan(4, 64, x.element_size(), False)[0] == "scalar"
+
+
+def test_cpu_calls_count_no_route():
+    rn.reset_launches()
+    for dtype in ("float32", "bfloat16"):
+        tops.rmsnorm(*_inputs((3, 64), dtype))
+    assert rn.launches == 0 and set(rn.launches_by_route.values()) == {0}
+    rn.launches, rn.launches_by_route["cached"] = 3, 2
+    rn.reset_launches()
+    assert rn.launches == 0 and set(rn.launches_by_route.values()) == {0}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(4, 37, 96), (256, 1536), (3, 1000)])
@@ -128,6 +198,38 @@ def test_cuda_kernel_matches_plain_version(shape, dtype):
     got = rn.rmsnorm(x, s)
     torch.cuda.synchronize()
     assert rn.launches == before + 1
+    want = rn.rmsnorm_ref(x, s)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2 ** -7, atol=1e-5))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 333), (2, 8192), (1, 1536), (8192, 1536),
+                                   (4, 32768), "misaligned"])
+def test_cuda_routes_match_plain_version(shape, dtype):
+    """Each route on the card: odd rows (scalar), wide rows and single rows
+    (cached, a block a row), the training activations (cached, a warp a
+    row), rows past the register cache (reread) and a misaligned slice
+    (scalar), each launch through the route ``rmsnorm_plan`` names.
+    Tolerance as test_cuda_kernel_matches_plain_version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if shape == "misaligned":  # one element of padding, sliced on the card
+        x, s = _misaligned(6, 1536, dtype)
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)]).cuda()[1:].view(6, 1536)
+        s = s.cuda()
+    else:
+        x, s = (t.cuda() for t in _inputs(shape, dtype, seed=4))
+    R, D = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, s))
+    route = rn.rmsnorm_plan(R, D, x.element_size(), aligned)[0]
+    rn.reset_launches()
+    got = rn.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rn.launches == rn.launches_by_route[route] == 1
+    assert (route == "scalar") == (shape in ((5, 333), "misaligned"))
     want = rn.rmsnorm_ref(x, s)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
            else dict(rtol=2 ** -7, atol=1e-5))
