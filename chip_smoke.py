@@ -10,7 +10,8 @@ Phases (every check asserts; any failure exits non-zero):
    source started together, and print ptxas's register and spill report;
    count the wgmma (HGMMA) and TMA (UTMALDG) instructions in the
    flash_attention and matmul libraries' SASS and the tensor-core (HMMA)
-   instructions in ragged_paged_flash's, and fail if any is 0.
+   instructions in ragged_paged_flash's and paged_flash_decode's, and fail
+   if any is 0.
 3. Each kernel against its plain PyTorch version at full-width shapes.
    Tolerance: f32 outputs rtol = atol = 1e-4; bf16 outputs atol = 2e-2,
    compared in f32, and for the attention kernels also each output row
@@ -33,21 +34,26 @@ Phases (every check asserts; any failure exits non-zero):
      bf16, windowed (window 512, bf16), and a small odd case (S 96, G 3,
      bq = bk = 32) in f32 and bf16, each case's variant ("wgmma" for bf16,
      "simt" for f32, as ``flash_variant`` says) and TFLOP/s printed; then
-     CUDA-event times of the kernel, the plain version and
-     ``scaled_dot_product_attention`` (the library yardstick, which the port
-     never calls) at the training shape in bf16 and f32, beside the
-     operation bound.
+     CUDA-event and device times of the kernel, event times of the plain
+     version and ``scaled_dot_product_attention`` (the library yardstick,
+     which the port never calls) at the training shape in bf16 and f32,
+     beside the operation bound.
    - paged_flash_decode at phase 4's decode tick (8 slots, lens up to
      2048, one empty slot, sentinel pages), q in {f32, bf16} x pools in
-     {f32, bf16, int8}; CUDA-event times beside the byte bound.
+     {f32, bf16, int8}, each case's variant (``kernel_variant``: "mma" for
+     bf16 q over bf16/int8 pools, "simt" otherwise) printed; then, for bf16
+     q over bf16 and int8 pools, CUDA-event and device times at key splits
+     of 64, 128 and 256 keys, warm and cold (rotating over pool copies
+     larger than the L2), beside the byte bound, the plain version and
+     ragged_paged_flash on the same pack with ``slot = arange(B)``.
    - matmul, both accumulation policies, f32 and bf16, at 4096^3 and
      1000 x 1500 x 700, against its plain version (f32: rtol 1e-4; bf16:
      rtol 2^-7, one rounding unit; each with an atol of 2^-16 (f32) or
      2^-12 (bf16) x sqrt(K) x rms|a| x rms|b|), each case's route
      (``matmul_route``: TMA or register-staged wgmma for bf16, cp.async or
-     scalar-load FMA for f32) printed; times and TFLOP/s beside
-     ``torch.matmul`` and the bound (the "hbm" policy's bytes count its C
-     passes).
+     scalar-load FMA for f32) printed; event and device times and TFLOP/s
+     beside ``torch.matmul`` and the bound (the "hbm" policy's bytes count
+     its C passes).
    - rmsnorm at the serving pack (256 x 1536) and the training
      activations (8192 x 1536), f32 and bf16, against its plain version and
      ``torch.nn.functional.rms_norm`` (f32: 1e-5; bf16: rtol 2^-7), each
@@ -68,7 +74,8 @@ Phases (every check asserts; any failure exits non-zero):
    Then the same workload through the two-phase engine (``ragged=False``:
    batched prefill chunks, then decode ticks through paged_flash_decode),
    bf16 and int8 pools and a profiled bf16 repeat: the kernel launches
-   exactly once per layer per decode tick.
+   exactly once per layer per decode tick, every launch through the "mma"
+   variant, and the profiled repeat gives its device time per launch.
 5. The kernel route against the gather route at full width in f32: after a
    prefill step, one ragged step of a mixed pack from the same state
    through each route; then, for the two-phase path, one decode tick after
@@ -160,18 +167,22 @@ def card_line() -> str:
 def device_ms(fn, iters: int = 20, warmup: int = 3):
     """Device time per call of ``fn``: ``iters`` calls after ``warmup``
     under ``torch.profiler`` (CUDA activity only), the summed device time of
-    every kernel they ran over ``iters``.  None where the profiler recorded
-    no device time (not measured)."""
+    every kernel they ran over ``iters``.  The profiler now and then records
+    no device time; such a run is repeated, up to three in all, and None
+    (not measured) is returned if none recorded any."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-    with prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages())
-    return total / 1e3 / iters if total > 0 else None
+    for _ in range(3):
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_device_us(e) for e in prof.key_averages())
+        if total > 0:
+            return total / 1e3 / iters
+    return None
 
 
 def fmt_ms(ms) -> str:
@@ -286,9 +297,9 @@ def bound(args) -> tuple:
 
 
 # the instructions each library's SASS must hold: wgmma and TMA tile loads
-# for flash and matmul, mma.sync for the serving kernel
+# for flash and matmul, mma.sync for the two serving kernels
 SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"), "matmul": ("HGMMA", "UTMALDG"),
-            "ragged_paged_flash": ("HMMA",)}
+            "ragged_paged_flash": ("HMMA",), "paged_flash_decode": ("HMMA",)}
 
 
 def sass_phase(card: str) -> dict:
@@ -356,8 +367,7 @@ def check_kernel(card: str) -> dict:
         kv_bytes = kv_reached(args[1], None, args[3], {
             b: int(args[5][args[4] == b].max()) for b in range(args[3].shape[0])
             if bool(((args[4] == b) & (args[5] > 0)).any())})[0]
-        n = -(-2 * L2_BYTES // kv_bytes) + 1
-        pools = [(args[1].clone(), args[2].clone()) for _ in range(n)]
+        pools, n = cold_pools(args[1], args[2], kv_bytes)
         turn = itertools.count()
 
         def cold():
@@ -437,14 +447,27 @@ def row_rel_err(got, want) -> float:
     return float((d / want.float().norm(dim=-1).clamp_min(1e-30)).max())
 
 
+def cold_pools(kp, vp, kv_bytes):
+    """Copies of the pools to rotate over, so that the pages the calls
+    reach in turn exceed the 50 MB L2 twice: (copies, their count)."""
+    n = -(-2 * L2_BYTES // kv_bytes) + 1
+    return [(kp.clone(), vp.clone()) for _ in range(n)], n
+
+
 def check_decode(card: str) -> dict:
     """Kernel 2 against its plain version at phase 4's decode tick, every
-    (q, pool) type pair, then CUDA-event times at bf16.  A bf16 output is
-    held twice: each element to atol 2e-2, and each output row (one slot,
-    KV head and query head) to BF16_ROW_RTOL of its norm.  A slot of length
-    L averages about L/e keys, so |o| is near 0.036 in the 2048-token slot:
-    only the row bound sees an error in proportion to it."""
+    (q, pool) type pair, each through the variant ``kernel_variant`` names.
+    A bf16 output is held twice: each element to atol 2e-2, and each output
+    row (one slot, KV head and query head) to BF16_ROW_RTOL of its norm.  A
+    slot of length L averages about L/e keys, so |o| is near 0.036 in the
+    2048-token slot: only the row bound sees an error in proportion to it.
+    Then, at bf16: the device time (``device_ms``) and CUDA-event time of
+    the kernel at split sizes of 64, 128 and 256 keys, warm and cold; the
+    plain version's time; and ``ragged_paged_flash`` on the same pack as a
+    ragged pack of one token per slot (``slot = arange(B)``), the kernel
+    that computes the same function."""
     from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import ragged_paged_flash as rpf
 
     dev = torch.device("cuda")
     pack = make_decode_pack()
@@ -452,8 +475,11 @@ def check_decode(card: str) -> dict:
     for q_dt in (torch.float32, torch.bfloat16):
         for kv_dt in (torch.float32, torch.bfloat16, torch.int8):
             q, kp, vp, ptab, lens, ks, vs = kernel_inputs(pack, q_dt, kv_dt, dev)
+            pfd.reset_launches()
             got = pfd.paged_flash_decode(q, kp, vp, ptab, lens, ks=ks, vs=vs)
             torch.cuda.synchronize()
+            variant = ran(pfd.launches_by_variant)
+            assert variant == pfd.kernel_variant(q, kp, vp), (q_dt, kv_dt, variant)
             want = pfd.paged_flash_decode_ref(q, kp, vp, ptab, lens, ks=ks, vs=vs)
             tol = (dict(rtol=1e-4, atol=1e-4) if q_dt == torch.float32
                    else dict(rtol=0.0, atol=2e-2))
@@ -466,19 +492,73 @@ def check_decode(card: str) -> dict:
                 tol = {**tol, "row_rtol": BF16_ROW_RTOL}
             errs[(q_dt, kv_dt)] = err
             live = want[lens > 0].float().abs()
-            print(f"paged_flash_decode vs plain: q {q_dt} pools {kv_dt}: max "
-                  f"|err| {err:.3e}, max row |err| / |ref| {rel:.3e}, median "
-                  f"|ref| {float(live.median()):.3e} (tol {tol})")
-    args = kernel_inputs(pack, torch.bfloat16, torch.bfloat16, dev)
-    ms = cuda_ms(lambda: pfd.paged_flash_decode(*args[:5]))
-    plain = cuda_ms(lambda: pfd.paged_flash_decode_ref(*args[:5]), iters=10)
-    b_ms, b_by = decode_bound(args)
-    print(f"paged_flash_decode decode tick (B=8, lens up to 2048, bf16 q and "
-          f"pools) on {card}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by}), share of bound {b_ms / ms:.4f}; library "
-          f"call: none")
-    return dict(err=errs[(torch.bfloat16, torch.bfloat16)], ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            print(f"paged_flash_decode vs plain: q {q_dt} pools {kv_dt}, variant "
+                  f"{variant}: max |err| {err:.3e}, max row |err| / |ref| "
+                  f"{rel:.3e}, median |ref| {float(live.median()):.3e} (tol {tol})")
+
+    out = {"err": errs[(torch.bfloat16, torch.bfloat16)], "library_ms": None}
+    b16 = torch.bfloat16
+    for kv_dt in (b16, torch.int8):
+        args = kernel_inputs(pack, b16, kv_dt, dev)
+        q, kp, vp, ptab, lens, ks, vs = args
+        variant = pfd.kernel_variant(q, kp, vp)
+        b_ms, b_by = decode_bound(args)
+        kv_bytes = kv_reached(kp, ks, ptab, {
+            b: int(n) for b, n in enumerate(lens.tolist()) if n > 0})[0]
+        pools, n = cold_pools(kp, vp, kv_bytes)
+        turn = itertools.count()
+
+        def cold():
+            kpc, vpc = pools[next(turn) % n]
+            return pfd.paged_flash_decode(q, kpc, vpc, ptab, lens, ks=ks, vs=vs)
+
+        def call():
+            return pfd.paged_flash_decode(q, kp, vp, ptab, lens, ks=ks, vs=vs)
+
+        default = pfd.SPLIT_KEYS
+        want = pfd.paged_flash_decode_ref(q, kp, vp, ptab, lens, ks=ks, vs=vs)
+        for keys in (64, 128, 256):
+            pfd.SPLIT_KEYS = keys
+            try:
+                got = call()
+                torch.testing.assert_close(got.float(), want.float(), rtol=0.0,
+                                           atol=2e-2)
+                assert row_rel_err(got, want) <= BF16_ROW_RTOL, keys
+                splits = pfd.n_splits(ptab.shape[1] * kp.shape[1])
+                ms, dev_ms = cuda_ms(call), device_ms(call, iters=50)
+                cold_ms = cuda_ms(cold, iters=4 * n)
+                cold_dev = device_ms(cold, iters=2 * n)
+            finally:
+                pfd.SPLIT_KEYS = default
+            print(f"paged_flash_decode decode tick (B=8, lens up to 2048, bf16 q, "
+                  f"pools {kv_dt}, variant {variant}, {keys}-key splits, {splits} "
+                  f"a row) on {card}: warm: events {ms:.4f} ms, device "
+                  f"{fmt_ms(dev_ms)}; cold ({n} pool copies, {n * kv_bytes / 1e6:.0f} "
+                  f"MB reached in turn): events {cold_ms:.4f} ms, device "
+                  f"{fmt_ms(cold_dev)}; bound {b_ms:.5f} ms ({b_by})")
+            if kv_dt == b16 and keys == default:
+                out.update(ms=ms, device_ms=dev_ms, cold_ms=cold_ms,
+                           cold_device_ms=cold_dev, bound_ms=b_ms, bound_by=b_by)
+        del pools
+        plain = cuda_ms(lambda: pfd.paged_flash_decode_ref(
+            q, kp, vp, ptab, lens, ks=ks, vs=vs), iters=10)
+        slot = torch.arange(q.shape[0], dtype=torch.int32, device=dev)
+        ragged = lambda: rpf.ragged_paged_flash(  # noqa: E731
+            q, kp, vp, ptab, slot, lens, ks=ks, vs=vs)
+        diff = float((ragged().float() - call().float()).abs().max())
+        r_ms, r_dev = cuda_ms(ragged), device_ms(ragged, iters=50)
+        print(f"  same pack, pools {kv_dt}: plain {plain:.4f} ms (events); "
+              f"ragged_paged_flash with slot = arange(B): events {r_ms:.4f} ms, "
+              f"device {fmt_ms(r_dev)} (max |diff| to the decode kernel "
+              f"{diff:.3e}); library call: none")
+        if kv_dt == b16:
+            out.update(plain_ms=plain, ragged_ms=r_ms, ragged_device_ms=r_dev)
+    dm = out["device_ms"]
+    share = "not measured" if dm is None else f"{out['bound_ms'] / dm:.4f}"
+    print(f"paged_flash_decode at {pfd.SPLIT_KEYS}-key splits on {card}: device "
+          f"{fmt_ms(dm)}, share of bound {share} (device), plain / kernel "
+          f"(events) {out['plain_ms'] / out['ms']:.1f}")
+    return out
 
 
 def matmul_bound(M, K, N, dtype, block, accum) -> tuple:
@@ -520,8 +600,9 @@ def check_matmul(card: str) -> dict:
                 assert route == mm.matmul_route(dt, K, N), (M, dt, accum, route)
                 torch.testing.assert_close(got.float(), want.float(), **tol)
                 err = float((got.float() - want.float()).abs().max())
-                ms = cuda_ms(lambda: mm.matmul(a, b, block=block, accum=accum),
-                             iters=5, warmup=1)
+                kernel_fn = lambda: mm.matmul(a, b, block=block, accum=accum)  # noqa: E731
+                ms = cuda_ms(kernel_fn, iters=5, warmup=1)
+                dev_ms = device_ms(kernel_fn, iters=5, warmup=1)
                 plain = cuda_ms(lambda: mm.matmul_ref(a, b), iters=5, warmup=1)
                 lib = cuda_ms(lambda: torch.matmul(a, b), iters=5, warmup=1)
                 b_ms, b_by = matmul_bound(M, K, N, dt, block, accum)
@@ -532,11 +613,13 @@ def check_matmul(card: str) -> dict:
                       f"on {card}: max "
                       f"|err| {err:.3e} (tol "
                       f"rtol {tol['rtol']:.3g}, atol {tol['atol']:.3g}); kernel "
-                      f"{ms:.4f} ms = {2e-9 * M * N * K / ms:.1f} TFLOP/s, plain "
+                      f"{ms:.4f} ms = {2e-9 * M * N * K / ms:.1f} TFLOP/s (events),"
+                      f" device {fmt_ms(dev_ms)}, plain "
                       f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
                       f"{b_ms:.5f} ms ({b_by}), share of bound {b_ms / ms:.4f}, "
                       f"kernel / library {ms / lib:.2f}")
-                out[(M, dt, accum)] = dict(err=err, ms=ms, plain_ms=plain,
+                out[(M, dt, accum)] = dict(err=err, ms=ms, device_ms=dev_ms,
+                                           plain_ms=plain,
                                            bound_ms=b_ms, bound_by=b_by,
                                            library_ms=lib)
             del a, b, want
@@ -694,6 +777,7 @@ def check_flash(card: str) -> dict:
     for dt in (torch.bfloat16, torch.float32):
         q, k, v = flash_inputs(**main, dtype=dt)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters=20, warmup=3)
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v), iters=10)
         plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v), iters=5,
                         warmup=1)
         q4 = q.view(2, 12, 4096, 128)
@@ -707,13 +791,14 @@ def check_flash(card: str) -> dict:
         tflops = flash_flops(q) / ms / 1e9
         print(f"flash_attention at the training shape {tuple(q.shape)} {dt}, "
               f"variant {fa.flash_variant(dt, q.shape[-1])}, on {card}: kernel "
-              f"{ms:.4f} ms = {tflops:.1f} TFLOP/s, plain {plain:.4f} ms, "
+              f"{ms:.4f} ms = {tflops:.1f} TFLOP/s (events), device "
+              f"{fmt_ms(dev_ms)}, plain {plain:.4f} ms, "
               f"scaled_dot_product_attention {lib:.4f} ms (max |diff| to the "
               f"kernel {diff:.3e}), bound {b_ms:.5f} ms ({b_by}), share of "
               f"bound {b_ms / ms:.4f}, kernel / library {ms / lib:.2f}")
         if dt == torch.bfloat16:
-            out.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib)
+            out.update(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib)
         del q, k, v, q4, k4, v4
     return out
 
@@ -729,11 +814,12 @@ def _device_us(evt) -> float:
 
 
 # the CUDA functions of each serving wrapper's launch: the ragged kernel's
-# plan, attention (either variant) and merge kernels; the decode kernel
+# plan, attention (either variant) and merge kernels; the decode kernel's
+# one kernel (either variant)
 SERVE_KERNELS = {
     "ragged_paged_flash": ("ragged_plan_kernel", "ragged_mma_kernel",
                            "ragged_simt_kernel", "ragged_merge_kernel"),
-    "paged_flash_decode": ("paged_flash_decode_kernel",),
+    "paged_flash_decode": ("decode_mma_kernel", "decode_simt_kernel"),
 }
 
 
@@ -787,8 +873,7 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False,
         else contextlib.nullcontext())
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    if ragged:
-        rpf.reset_launches()
+    kmod.reset_launches()
     setattr(kmod, kname, timed_kernel)
     try:
         with prof:
@@ -810,8 +895,8 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False,
     kernel_ticks = st["ragged_ticks"] if ragged else st["decode_ticks"]
     assert st["kernel_launches"] == cfg.n_layers * kernel_ticks, st
     assert len(spans) == st["kernel_launches"], (len(spans), st)
-    if ragged:  # bf16 activations over bf16 or int8 pools: the tensor cores
-        assert rpf.launches_by_variant["mma"] == len(spans), rpf.launches_by_variant
+    # bf16 activations over bf16 or int8 pools: the tensor cores
+    assert kmod.launches_by_variant["mma"] == len(spans), kmod.launches_by_variant
     assert [t.data_ptr() for t in eng.pool_tensors()] == ptrs, "pools moved"
     assert eng.pool.pages_in_use == 0 and eng.reclaimable_pages == eng.n_pages
     toks = sum(len(results[h]) for h in handles)
@@ -826,7 +911,8 @@ def serve_full(params, cfg, kv_dtype, card: str, *, profiled: bool = False,
           f"in {wall:.3f} s = {toks / wall:.1f} tokens/s, {ticks} ticks, "
           f"{1e3 * wall / ticks:.2f} ms/tick, peak memory {peak:.2f} GiB, "
           f"prefix hits {st['prefix_hits']}, COW copies {st['cow_copies']}, "
-          f"kernel launches {st['kernel_launches']}")
+          f"kernel launches {st['kernel_launches']}, by variant "
+          f"{dict(kmod.launches_by_variant)}")
     print(f"  {kname} kernel in this run (CUDA events): {kernel_ms:.3f} ms "
           f"over {len(spans)} launches = {kernel_ms / len(spans):.4f} ms per "
           f"launch, {kernel_ms / ticks:.3f} ms per tick, "
@@ -1224,15 +1310,13 @@ def main() -> int:
     cfg = get_config("qwen2-1.5b")  # FULL, bf16 activations
     params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda")
-    rpf.reset_launches()  # count only the main path's launches
-    plain = serve_full(params, cfg, None, card)
+    plain = serve_full(params, cfg, None, card)  # counts from 0
     launches = rpf.launches
     assert launches > 0, "the serving path never launched the kernel"
     serve_full(params, cfg, "int8", card)
     print_idle_share("ragged, bf16 pools", plain,
                      serve_full(params, cfg, None, card, profiled=True), card)
-    pfd.launches = 0  # the two-phase path's own count
-    two = serve_full(params, cfg, None, card, ragged=False)
+    two = serve_full(params, cfg, None, card, ragged=False)  # counts from 0
     decode_launches = pfd.launches
     assert decode_launches == cfg.n_layers * two["decode_ticks"] > 0, \
         (decode_launches, two)

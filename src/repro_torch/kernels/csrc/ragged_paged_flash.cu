@@ -54,17 +54,16 @@
 // tile's single m16 row tile over the six warps (one warp computes while
 // five only load).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "paged.cuh"
 
 namespace {
 
+using namespace paged;
+
 enum Variant { kSimt = 0, kMma = 1 };
 
-constexpr float kNegInf = -1e30f;  // the JAX kernels' NEG_INF
 constexpr int kTileTokens = 16;    // most pack tokens in one query tile
 constexpr int kMaxSplits = 16;     // most key splits of a block-table row
 constexpr int kPlanThreads = 1024;
@@ -93,43 +92,6 @@ struct Params {
   int T, kvH, G, hd, page, npages, B, pps, S, KS, TT, RM;
   float scale;
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // Visible entries of a token: lens clamped to [0, S] (the block-table row
 // holds S = pps * page entries).
@@ -262,26 +224,6 @@ __device__ __forceinline__ int key_row(const Params& p, const int32_t* prow, int
 
 // ---------------------------------------------------------------------------
 // 2a. the tensor-core variant
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(addr)));
-}
-__device__ __forceinline__ uint32_t lds32(const char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Shared-memory layout of the mma variant (bytes; at most 98,816 at hd 128
 // with int8 pools, so two blocks share an SM): q rows, a two-stage ring of
@@ -684,12 +626,6 @@ __global__ void __launch_bounds__(kMergeThreads) ragged_merge_kernel(const Param
 
 // ---------------------------------------------------------------------------
 // launches
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 // Blocks along x: enough for one pass over the tiles of a pack whose slots
 // each form one run (ceil(T / TT) + B), and never more than T.

@@ -138,7 +138,9 @@ def test_decode_ref_int8_fused_dequant_matches_pallas_kernel(jax_ops):
 
 def test_decode_ref_equals_ragged_ref_with_one_token_per_slot():
     """Kernel 2 computes what kernel 1 does for the pack ``slot = arange(B)``
-    (the two CUDA kernels share their page walk)."""
+    (a decode tick is a ragged pack of one token per slot;
+    tests/test_torch_decode.py holds the two CUDA kernels together on the
+    card)."""
     from repro_torch.kernels import ragged_paged_flash as rpf
 
     args = [torch.from_numpy(a) for a in _decode_case(8, 4)]
