@@ -12,7 +12,11 @@ The pools are updated IN PLACE (``kv_scatter_quantized``, ``copy_pages``):
 that replaces JAX's buffer donation, so a pool keeps its ``data_ptr()`` for
 the engine's whole life.  Where JAX scatters with ``mode="drop"`` (the
 sentinel page ``n_pages`` marks a write that must not land), the writes
-here are masked, because torch indexing raises on an out-of-range index.
+here go through ``scatter_live``: every entry writes, at a shape fixed by
+the inputs' shapes, and a dropped entry writes bytes that are already
+there or that a live entry writes too.  No boolean index, so no
+``nonzero`` and no host synchronisation: the serving steps can be captured
+in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -150,15 +154,42 @@ def live_writes(page: torch.Tensor, n_pages: int) -> torch.Tensor:
     return (page >= 0) & (page < n_pages)
 
 
+def scatter_live(pairs, index, live) -> None:
+    """``dst[index] = values`` for each (dst, values) of ``pairs``, in
+    place, where ``live`` is set — JAX's ``.at[index].set(values,
+    mode="drop")`` with the dropped entries marked by ``live`` == False.
+
+    Shape-static: all N entries write.  A dropped entry takes the target and
+    the value of the first live entry (``argmax`` of ``live``), so a target
+    that several entries hit receives the same bytes from each and
+    ``index_put_``'s unspecified order cannot matter; with no live entry,
+    every entry writes entry 0's target with its own current value.
+    ``live``: bool of any shape S; ``index``: a tuple of int64 tensors of
+    shape S, already clamped into ``dst``'s range; ``values``: S + the
+    shape of one ``dst`` entry."""
+    n = live.numel()
+    live = live.reshape(n)
+    first = torch.argmax(live.to(torch.uint8))
+    src = torch.where(live, torch.arange(n, device=live.device), first)
+    keep = live[src]
+    idx = tuple(i.reshape(n)[src] for i in index)
+    for dst, values in pairs:
+        new = values.reshape((n,) + values.shape[len(index[0].shape):])
+        new = new[src].to(dst.dtype)
+        put = keep.reshape((n,) + (1,) * (new.ndim - 1))
+        dst.index_put_(idx, torch.where(put, new, dst[idx]))
+
+
 def kv_scatter_quantized(pool, scales, rows, page, off):
     """Fused quantize-on-write KV scatter for int8 paged pools: quantizes
-    ``rows`` ((T, kvH, hd)) and writes values into ``pool[page, off]`` and
-    scales into ``scales[page, off]``, in place.  Sentinel pages drop both
-    writes.  Returns (pool, scales), the same tensors."""
+    all of ``rows`` ((T, kvH, hd)) and writes values into ``pool[page,
+    off]`` and scales into ``scales[page, off]``, in place.  Sentinel pages
+    drop both writes (``scatter_live``).  Returns (pool, scales), the same
+    tensors."""
     q, s = quantize_kv(rows)
-    m = live_writes(page, pool.shape[0])
-    pool[page[m], off[m]] = q[m]
-    scales[page[m], off[m]] = s[m]
+    n_pages = pool.shape[0]
+    scatter_live([(pool, q), (scales, s)],
+                 (page.clamp(0, n_pages - 1), off), live_writes(page, n_pages))
     return pool, scales
 
 

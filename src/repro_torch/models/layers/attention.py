@@ -16,8 +16,10 @@ Differences from JAX, on purpose:
   ``cache`` dict it is given and returns the same dict.  That replaces
   donation; the pools keep their ``data_ptr()``.
 - Writes JAX drops with ``mode="drop"`` (the sentinel page ``n_pages``, the
-  sentinel kpos index ``pps*page``) are masked out; gathers JAX clips with
-  ``mode="clip"`` clamp their indices.
+  sentinel kpos index ``pps*page``) go through ``kernels.ops.scatter_live``,
+  whose shapes follow from the inputs' shapes alone (no boolean index, no
+  host synchronisation), so that a serving step can be captured in a CUDA
+  graph; gathers JAX clips with ``mode="clip"`` clamp their indices.
 - Serving weights are cast to the activation dtype once at load, not at
   each use; training weights stay in the parameter dtype and are cast at
   each use, as in JAX.
@@ -195,10 +197,20 @@ def _scatter_paged_kv(cache, k_new, v_new, page, off):
         kops.kv_scatter_quantized(cache["kp"], cache["ks"], k_new, page, off)
         kops.kv_scatter_quantized(cache["vp"], cache["vs"], v_new, page, off)
         return
-    m = kops.live_writes(page, cache["kp"].shape[0])
-    pm, om = page[m], off[m]
-    cache["kp"][pm, om] = k_new[m].to(cache["kp"].dtype)
-    cache["vp"][pm, om] = v_new[m].to(cache["vp"].dtype)
+    n_pages = cache["kp"].shape[0]
+    kops.scatter_live([(cache["kp"], k_new), (cache["vp"], v_new)],
+                      (page.clamp(0, n_pages - 1), off),
+                      kops.live_writes(page, n_pages))
+
+
+def _write_kpos(kpos, rows, qp, q_pos, valid):
+    """``kpos[rows, qp] = q_pos`` for valid entries inside [0, Tc), in
+    place; JAX drops the rest (its sentinel index ``Tc``).  The four index
+    tensors share one shape."""
+    B, Tc = kpos.shape
+    live = valid & (qp >= 0) & (qp < Tc)
+    kops.scatter_live([(kpos, q_pos)],
+                      (rows.clamp(0, B - 1), qp.clamp(0, Tc - 1)), live)
 
 
 def _gather_paged_kv(cache, dtype):
@@ -245,9 +257,8 @@ def paged_attention_step(params, cfg: AttnCfg, x, cache, q_pos, valid, *,
     off = torch.remainder(qp, P)
     _scatter_paged_kv(cache, k_new, v_new, page, off)
     T = pps * P
-    w = valid & (qp >= 0) & (qp < T)  # JAX drops kpos writes outside [0, T)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
-    cache["kpos"][rows[w], qp[w]] = q_pos[w].to(cache["kpos"].dtype)
+    _write_kpos(cache["kpos"], rows, qp, q_pos, valid)
     cache["slen"].copy_(torch.maximum(
         cache["slen"],
         torch.where(valid, q_pos + 1, 0).amax(dim=1).to(cache["slen"].dtype)))
@@ -293,8 +304,7 @@ def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,
     off = torch.remainder(qp, P)
     _scatter_paged_kv(cache, k_new, v_new, page, off)
     Tc = pps * P
-    w = valid & (qp >= 0) & (qp < Tc)  # JAX drops kpos writes outside [0, Tc)
-    cache["kpos"][sl[w], qp[w]] = q_pos[w].to(cache["kpos"].dtype)
+    _write_kpos(cache["kpos"], sl, qp, q_pos, valid)
     cache["slen"].scatter_reduce_(
         0, sl, torch.where(valid, q_pos + 1, 0).to(cache["slen"].dtype),
         "amax", include_self=True)

@@ -32,7 +32,22 @@ engine's on the same weights:
   ``kernels/ragged_paged_flash.py``, the two-phase decode tick's in
   ``kernels/paged_flash_decode.py`` (prefill chunks gather, as in JAX);
   ``stats["kernel_launches"]`` counts the launches of both.
-  ``stats["traces"]`` stays 0: nothing is compiled or captured yet.
+- **Capture.** The first tick with state builds each step of the engine's
+  path once at its fixed shapes as a ``serve_step.CapturedStep``: (T,) and
+  (B,) for the ragged step; (B, ``prefill_chunk``) for the chunk step and
+  (B, 1) for the decode tick of the two-phase path.  On a CUDA device each
+  is captured into a CUDA graph and replayed every tick — the port of
+  JAX's one jitted program per step; a tick copies its pack into the
+  step's static inputs from pinned host buffers, and the sampled (B, V)
+  float32 logits come back through a pinned buffer.  ``cuda_graph=False``
+  runs the same steps eagerly instead, the counterpart of running JAX with
+  jit disabled (for A/B checks of the capture).  ``stats["traces"]``
+  counts what JAX counts, builds of the ragged step (1 on the ragged
+  engine, 0 on the two-phase one); ``stats["graph_captures"]`` counts the
+  captured graphs of either path (0 on the CPU).  After a capture the
+  kernel wrappers' own counters no longer run, so
+  ``stats["kernel_launches"]`` adds the launches recorded at capture for
+  every replay.
 
 Left for later slices, each raising ``NotImplementedError`` naming it:
 speculative decoding (``spec_k>0``), the host-RAM tier (``host_pages>0``),
@@ -53,8 +68,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
-from repro_torch.kernels import paged_flash_decode as pfd
-from repro_torch.kernels import ragged_paged_flash as rpf
 from repro_torch.models import model as M
 from repro_torch.models.transformer import POOL_LEAVES
 from repro_torch.serve.errors import (DeadlineExceeded, EngineOverloaded,
@@ -63,7 +76,8 @@ from repro_torch.serve.handle import Request, RequestHandle
 from repro_torch.serve.pool import (KV_ITEMSIZE, PagePool, _PrefixNode,
                                     kv_bytes_per_token, kv_page_bytes)
 from repro_torch.serve.scheduler import make_scheduler
-from repro_torch.serve.serve_step import make_paged_step, make_ragged_step
+from repro_torch.serve.serve_step import (CapturedStep, capture_paged_step,
+                                          capture_ragged_step)
 
 __all__ = ["ServeEngine", "kv_page_bytes", "kv_bytes_per_token"]
 
@@ -72,11 +86,6 @@ def _later(feature: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported yet: it comes with the {slice_name} slice "
         "of the PyTorch port (ROADMAP.md, Queue 1)")
-
-
-def _kernel_launches() -> int:
-    """Launches of both serving attention kernels so far."""
-    return rpf.launches + pfd.launches
 
 
 @dataclasses.dataclass
@@ -103,7 +112,7 @@ class ServeEngine:
                  scheduler=None, mesh=None, host_pages: int = 0,
                  spec_k: int = 0, preempt: bool = True,
                  max_queue: Optional[int] = None, fault_injector=None,
-                 device=None):
+                 device=None, cuda_graph: bool = True):
         if spec_k:
             raise _later("speculative decoding (spec_k > 0)", "speculative-decoding")
         if host_pages:
@@ -125,6 +134,8 @@ class ServeEngine:
         self.budget = token_budget
         self.greedy = greedy
         self.ragged = ragged
+        self.flash_decode = flash_decode
+        self.cuda_graph = cuda_graph
         self.kv_dtype = str(kv_dtype or cfg.dtype)
         if self.kv_dtype not in KV_ITEMSIZE:
             raise ValueError(f"unsupported kv_dtype {self.kv_dtype!r} "
@@ -183,15 +194,11 @@ class ServeEngine:
                        # launches of the CUDA attention kernels by this
                        # engine's steps (0 on the CPU, which runs the plain
                        # versions)
-                       "kernel_launches": 0}
-        # width = most tokens one slot contributes to a pack: a prefill
-        # chunk plus its handoff decode token
-        self._ragged_step = make_ragged_step(cfg, width=prefill_chunk + 1,
-                                             flash_decode=flash_decode)
-        self._chunk_step = make_paged_step(cfg, with_logits=False,
-                                           flash_decode=flash_decode)
-        self._decode_step = make_paged_step(cfg, with_logits=True,
-                                            flash_decode=flash_decode)
+                       "kernel_launches": 0,
+                       # CUDA graphs captured by this engine (port only)
+                       "graph_captures": 0}
+        # the steps, built with the state (_ensure_state)
+        self._ragged_step = self._chunk_step = self._decode_step = None
 
     # -- public surface ---------------------------------------------------
     def submit(self, prompt, max_tokens: int = 16, eos_id=None, *,
@@ -459,10 +466,30 @@ class ServeEngine:
 
     # -- ragged path ------------------------------------------------------
     def _ragged_tick(self, state):
-        """Pack one token budget and run the ragged step: decode tokens
-        first, then prefill chunks in slot order until the budget runs out;
-        a slot whose prompt completes in this pack appends its first decode
-        token right behind it."""
+        """Pack one token budget and run the ragged step on it, then sample
+        every slot that emits a token."""
+        arrays, n, sampling = self._pack_ragged()
+        results: Dict[int, List[int]] = {}
+        if n == 0:
+            return state, results
+        self._run_step(self._ragged_step, arrays)
+        self._stats["ragged_ticks"] += 1
+        self._stats["packed_tokens"] += n
+        if sampling:
+            rows = self._ragged_step.fetch()  # (B, V) float32
+            self._stats["sampled_slot_ticks"] += len(sampling)
+            for b in sampling:
+                req = self.slots[b].req
+                self._finish_token(
+                    b, self._sample(req, rows[b], len(req.out_tokens)),
+                    results)
+        return state, results
+
+    def _pack_ragged(self):
+        """One token budget: decode tokens first, then prefill chunks in
+        slot order until the budget runs out; a slot whose prompt completes
+        in this pack appends its first decode token right behind it.
+        Returns (the step's host arrays, tokens packed, slots to sample)."""
         T, W = self.budget, self.chunk + 1
         tokens = np.zeros(T, np.int32)
         slot = np.zeros(T, np.int32)
@@ -505,30 +532,23 @@ class ServeEngine:
                     seq_idx[n], valid[n], logit_idx[b] = c, True, n
                     sampling.append(b)
                     n += 1
-        results: Dict[int, List[int]] = {}
-        if n == 0:
-            return state, results
-        before = _kernel_launches()
-        logits, state = self._ragged_step(
-            self.params, state, *self._to_device(
-                tokens, slot, q_pos, seq_idx, valid, logit_idx))
-        self._stats["kernel_launches"] += _kernel_launches() - before
-        self._stats["ragged_ticks"] += 1
-        self._stats["packed_tokens"] += n
-        if sampling:
-            rows = logits.float().cpu().numpy()  # (B, V)
-            self._stats["sampled_slot_ticks"] += len(sampling)
-            for b in sampling:
-                req = self.slots[b].req
-                self._finish_token(
-                    b, self._sample(req, rows[b], len(req.out_tokens)),
-                    results)
-        return state, results
+        return (tokens, slot, q_pos, seq_idx, valid, logit_idx), n, sampling
+
+    def _run_step(self, step: CapturedStep, arrays) -> None:
+        """Run one step on a pack and count its kernel launches."""
+        step.run(*arrays)
+        self._stats["kernel_launches"] += step.launches
 
     # -- two-phase path (ragged=False) ------------------------------------
     def _prefill_tick(self, state):
         """Advance every slot with outstanding prompt tokens by one chunk —
         a single batched (B, chunk) step with per-slot positions."""
+        self._run_step(self._chunk_step, self._pack_prefill())
+        self._stats["chunk_ticks"] += 1
+        return state
+
+    def _pack_prefill(self):
+        """The (B, chunk) prefill pack; advances each slot's fill."""
         C = self.chunk
         tokens = np.zeros((self.B, C), np.int32)
         q_pos = np.zeros((self.B, C), np.int32)
@@ -548,31 +568,14 @@ class ServeEngine:
             if s.fill >= L:
                 s.pos = L
                 s.last_tok = int(s.req.prompt[-1])
-        before = _kernel_launches()
-        _, state = self._chunk_step(self.params, state,
-                                    *self._to_device(tokens, q_pos, valid))
-        self._stats["kernel_launches"] += _kernel_launches() - before
-        self._stats["chunk_ticks"] += 1
-        return state
+        return tokens, q_pos, valid
 
     def _decode_tick(self, state):
         """One decode token for every live slot — a (B, 1) step; idle slots
         ride along invalid (their kernel rows read stale pages, clamped into
         the pool, and are ignored)."""
-        tokens = np.zeros((self.B, 1), np.int32)
-        q_pos = np.zeros((self.B, 1), np.int32)
-        valid = np.zeros((self.B, 1), bool)
-        for b, s in enumerate(self.slots):
-            if s is None:
-                continue
-            tokens[b, 0] = s.last_tok
-            q_pos[b, 0] = s.pos
-            valid[b, 0] = True
-        before = _kernel_launches()
-        logits, state = self._decode_step(self.params, state,
-                                          *self._to_device(tokens, q_pos, valid))
-        self._stats["kernel_launches"] += _kernel_launches() - before
-        rows = logits[:, -1].float().cpu().numpy()  # (B, V)
+        self._run_step(self._decode_step, self._pack_decode())
+        rows = self._decode_step.fetch()  # (B, V) float32
         self._stats["decode_ticks"] += 1
         results: Dict[int, List[int]] = {}
         for b, s in enumerate(self.slots):
@@ -583,20 +586,32 @@ class ServeEngine:
                                results)
         return state, results
 
+    def _pack_decode(self):
+        """The (B, 1) decode pack of every live slot."""
+        tokens = np.zeros((self.B, 1), np.int32)
+        q_pos = np.zeros((self.B, 1), np.int32)
+        valid = np.zeros((self.B, 1), bool)
+        for b, s in enumerate(self.slots):
+            if s is None:
+                continue
+            tokens[b, 0] = s.last_tok
+            q_pos[b, 0] = s.pos
+            valid[b, 0] = True
+        return tokens, q_pos, valid
+
     # -- driving ----------------------------------------------------------
     @property
     def idle(self) -> bool:
         """No live slot and nothing queued."""
         return all(s is None for s in self.slots) and not self.queue
 
-    def _to_device(self, *arrays):
-        return [torch.from_numpy(a).to(self.device) for a in arrays]
-
     def _ensure_state(self):
         """Decode state is created once and persists for the engine's whole
         life (the pool's pages ARE the prefix cache).  The reset template
         holds fresh copies of the per-slot leaves only — it must not alias
-        the live state, and the pools are never reset."""
+        the live state, and the pools are never reset.  The steps of the
+        engine's path are built (and, on a CUDA device, captured) here,
+        once, over that state."""
         if self._state is None:
             self._state = M.init_paged_state(
                 self.params, self.cfg, self.B, self.cache_len,
@@ -605,6 +620,25 @@ class ServeEngine:
             self._template = {"layers": [
                 [{k: v.clone() for k, v in c.items() if k not in POOL_LEAVES}
                  for c in ss] for ss in self._state["layers"]]}
+            self._build_steps()
+
+    def _build_steps(self) -> None:
+        kw = dict(flash_decode=self.flash_decode, capture=self.cuda_graph)
+        args = (self.cfg, self.params, self._state)
+        if self.ragged:
+            # width = most tokens one slot contributes to a pack: a prefill
+            # chunk plus its handoff decode token
+            self._ragged_step = capture_ragged_step(
+                *args, T=self.budget, B=self.B, width=self.chunk + 1, **kw)
+            self._stats["traces"] += 1
+            steps = [self._ragged_step]
+        else:
+            self._chunk_step = capture_paged_step(
+                *args, B=self.B, C=self.chunk, with_logits=False, **kw)
+            self._decode_step = capture_paged_step(
+                *args, B=self.B, C=1, with_logits=True, **kw)
+            steps = [self._chunk_step, self._decode_step]
+        self._stats["graph_captures"] += sum(s.captured for s in steps)
 
     def tick(self) -> Dict[int, List[int]]:
         """One scheduling tick: admit from the queue, pack, run one step.

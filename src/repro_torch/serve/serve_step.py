@@ -1,21 +1,36 @@
-"""The serving step builders of the engine.
+"""The serving step builders of the engine, and the captured step.
 
 Counterpart of ``repro.serve.serve_step.make_ragged_step``: the ragged
 engine's one step over a flat (T,) token pack in which every entry carries
 its own (slot, position, validity), so any mix of prefill-chunk and decode
 tokens runs through the same code.  ``make_paged_step`` builds the two
 steps of the two-phase path (``ragged=False``), which the JAX engine builds
-inline around ``models.model.paged_step``.  JAX jits it with the state donated; here it
-runs eagerly and updates the state's tensors in place, which is what
-keeps the pools at fixed addresses.  Capturing it in a CUDA graph is left
-for a later slice.
+inline around ``models.model.paged_step``.  Both run eagerly and update the
+state's tensors in place, which is what keeps the pools at fixed addresses.
+
+``CapturedStep`` is the port of JAX's one jitted program per step: it owns
+static input tensors of the step's fixed shapes and, on a CUDA device,
+captures the step once into a CUDA graph (``torch.cuda.graph``) and
+replays it every call.  ``capture_ragged_step`` and ``capture_paged_step``
+build it for the engine.  The step's writes are shape-static
+(``kernels.ops.scatter_live``) and both serving kernels' wrappers make no
+host synchronisation, which is what lets the graph hold a whole step.
 """
 from __future__ import annotations
 
+from typing import Callable, List, Sequence, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.kernels import paged_flash_decode as pfd
+from repro_torch.kernels import ragged_paged_flash as rpf
 from repro_torch.models import model as M
+
+# eager calls on a side stream before the capture: the kernels' libraries
+# build and load, cuBLAS sets up, the decode kernel's split counters exist
+WARMUP_CALLS = 2
 
 
 def make_ragged_step(cfg: ModelCfg, *, width: int, flash_decode: bool = False):
@@ -48,3 +63,159 @@ def make_paged_step(cfg: ModelCfg, *, with_logits: bool,
                             flash_decode=flash_decode)
 
     return paged_step
+
+
+def kernel_launches() -> int:
+    """Launches of both serving attention kernels so far, by their
+    wrappers' counts."""
+    return rpf.launches + pfd.launches
+
+
+class CapturedStep:
+    """One serving step at fixed input shapes, with static inputs.
+
+    ``fn(*inputs)`` runs the step on the static input tensors and returns
+    its output tensor or None; it closes over the params and the state,
+    which it updates in place.  ``specs`` gives each input's (shape, dtype),
+    ``idle`` an all-invalid pack of those shapes, which leaves every state
+    leaf bit-identical.
+
+    On a CUDA device with ``capture`` the constructor runs ``fn`` on the
+    idle pack ``WARMUP_CALLS`` times on a side stream, then captures one
+    call into a CUDA graph; ``run`` copies a pack into the static inputs
+    (through pinned host buffers) and replays the graph.  A failed capture
+    or replay raises: nothing falls back to eager.  Without ``capture``, or
+    on the CPU, ``run`` calls ``fn`` eagerly on the same static inputs.
+    ``launches`` is the number of serving-kernel launches one call makes:
+    counted while capturing (the wrappers' counters do not run on replay)
+    or, eagerly, over the last call.
+    """
+
+    def __init__(self, fn: Callable, specs: Sequence[Tuple[tuple, torch.dtype]],
+                 idle: Sequence[np.ndarray], *, device, capture: bool = True):
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        self._fn = fn
+        self.inputs = [torch.zeros(shape, dtype=dt, device=self.device)
+                       for shape, dt in specs]
+        self._host = [torch.zeros(shape, dtype=dt, pin_memory=cuda)
+                      for shape, dt in specs]
+        # set once the last copies out of the pinned buffers have run, and
+        # once the last output has reached its pinned buffer
+        self._copied = torch.cuda.Event() if cuda else None
+        self._fetched = torch.cuda.Event() if cuda else None
+        self.graph = None
+        self.launches = 0
+        self._out = None
+        self._out_host = None
+        self._keep: List[torch.Tensor] = []
+        if cuda and capture:
+            self._capture(idle)
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def _load(self, arrays) -> None:
+        """Copy host arrays into the static inputs."""
+        if self._copied is not None:
+            self._copied.synchronize()  # the pinned buffers are free again
+        for host, dev, a in zip(self._host, self.inputs, arrays):
+            host.numpy()[...] = a
+            dev.copy_(host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+    def _capture(self, idle) -> None:
+        self._load(idle)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_CALLS):
+                self._fn(*self.inputs)
+        main.wait_stream(side)
+        # the graph keeps the decode kernel's split counters it was captured
+        # with, even if a later call on the device replaces the buffer
+        self._keep = list(pfd._TICKETS.values())
+        graph = torch.cuda.CUDAGraph()
+        before = kernel_launches()
+        with torch.cuda.graph(graph):
+            self._out = self._fn(*self.inputs)
+        self.launches = kernel_launches() - before
+        self.graph = graph
+
+    def run(self, *arrays):
+        """Run the step on a pack of host arrays (the static inputs'
+        shapes and dtypes); returns its output tensor (static when
+        captured) or None."""
+        self._load(arrays)
+        if self.graph is not None:
+            self.graph.replay()
+            return self._out
+        before = kernel_launches()
+        self._out = self._fn(*self.inputs)
+        self.launches = kernel_launches() - before
+        return self._out
+
+    def fetch(self) -> np.ndarray:
+        """The last output on the host: copied into a pinned buffer, waited
+        on, and returned as a numpy view of that buffer (valid until the
+        next ``fetch``)."""
+        out = self._out
+        if self._out_host is None:
+            self._out_host = torch.empty(out.shape, dtype=out.dtype,
+                                         pin_memory=self._fetched is not None)
+        self._out_host.copy_(out, non_blocking=True)
+        if self._fetched is not None:
+            self._fetched.record()
+            self._fetched.synchronize()
+        return self._out_host.numpy()
+
+
+def idle_ragged_pack(T: int, B: int, width: int) -> List[np.ndarray]:
+    """An all-invalid ragged pack: no token writes, no row is sampled."""
+    return [np.zeros(T, np.int32), np.zeros(T, np.int32),
+            np.zeros(T, np.int32), np.full(T, width, np.int32),
+            np.zeros(T, bool), np.full(B, T, np.int32)]
+
+
+def idle_paged_pack(B: int, C: int) -> List[np.ndarray]:
+    """An all-invalid (B, C) two-phase pack."""
+    return [np.zeros((B, C), np.int32), np.zeros((B, C), np.int32),
+            np.zeros((B, C), bool)]
+
+
+def capture_ragged_step(cfg: ModelCfg, params, state, *, T: int, B: int,
+                        width: int, flash_decode: bool = False,
+                        capture: bool = True) -> CapturedStep:
+    """The ragged step at pack size T over B slots as a ``CapturedStep``:
+    ``run(tokens, slot, q_pos, seq_idx, valid, logit_idx)`` returns the
+    float32 logits (B, V); the cast runs inside the step."""
+    step = make_ragged_step(cfg, width=width, flash_decode=flash_decode)
+
+    def fn(*inputs):
+        return step(params, state, *inputs)[0].float()
+
+    i32 = torch.int32
+    specs = [((T,), i32)] * 4 + [((T,), torch.bool), ((B,), i32)]
+    return CapturedStep(fn, specs, idle_ragged_pack(T, B, width),
+                        device=params.device, capture=capture)
+
+
+def capture_paged_step(cfg: ModelCfg, params, state, *, B: int, C: int,
+                       with_logits: bool, flash_decode: bool = False,
+                       capture: bool = True) -> CapturedStep:
+    """A two-phase step at (B, C) as a ``CapturedStep``: ``run(tokens,
+    q_pos, valid)`` returns None for the prefill chunk (``with_logits``
+    False) and the float32 logits (B, V) of the decode tick (C == 1)."""
+    step = make_paged_step(cfg, with_logits=with_logits,
+                           flash_decode=flash_decode)
+
+    def fn(*inputs):
+        logits, _ = step(params, state, *inputs)
+        return None if logits is None else logits[:, -1].float()
+
+    specs = [((B, C), torch.int32)] * 2 + [((B, C), torch.bool)]
+    return CapturedStep(fn, specs, idle_paged_pack(B, C),
+                        device=params.device, capture=capture)

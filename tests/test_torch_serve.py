@@ -73,7 +73,7 @@ def test_transcripts_token_identical_to_jax_engine(qwen, kv_dtype, flash):
     for key in ("prefix_hits", "prefix_tokens_reused", "cow_copies",
                 "admissions", "ragged_ticks", "packed_tokens",
                 "pages_in_use_peak", "kv_pool_bytes", "kv_bytes_per_token",
-                "evictions"):
+                "evictions", "traces"):
         assert ts[key] == js[key], key
     assert ts["prefix_hits"] >= 2 and ts["cow_copies"] >= 1
     assert ts["kernel_launches"] == 0  # the CPU runs the plain version
