@@ -28,7 +28,12 @@ Phases (every check asserts; any failure exits non-zero):
      and event times of the plain version at a steady decode tick and a
      mixed tick, warm (the same pools every call) and cold (rotating over
      copies of the pools that together exceed the 50 MB L2), beside the
-     byte/operation bound.
+     byte/operation bound.  Then, bf16 q over bf16 and int8 pools, each
+     through "mma" with the same tolerances, device time beside the bound:
+     the mixed pack at glm4-9b's head layout (kvH 2, G 16) and qwen1.5-4b's
+     (kvH 20, G 1), and a verify pack at glm4-9b's (8 slots, lens up to
+     2048: each slot's decode token, then its 4 draft tokens as a later
+     run, as the speculative engine packs them).
    - flash_attention at the training shape (q (24, 4096, 128) over k/v
      (4, 4096, 128): batch 2 x 2 KV heads x 6 query heads each) in f32 and
      bf16, windowed (window 512, bf16), and a small odd case (S 96, G 3,
@@ -61,11 +66,13 @@ Phases (every check asserts; any failure exits non-zero):
      both beside the byte bound.  Then the norm layer's kernel route
      (``norms.rmsnorm(use_kernel=True)``, which no model path sets, as in
      JAX) at both shapes: its own launch count.
-4. Full-width qwen2-1.5b (28 layers, seed-0 random weights, bf16
-   activations, flash_decode=True) serves 8 requests through ServeEngine —
-   two share a 300-token prefix, so prefix hits and copy-on-write run —
-   through the ragged and the two-phase engine (``ragged=False``: batched
-   prefill chunks, then decode ticks through paged_flash_decode), each with
+4. Full-width qwen2-1.5b (seed-0 random weights, bf16 activations,
+   flash_decode=True) serves 8 requests through ServeEngine — two share a
+   300-token prefix, so prefix hits and copy-on-write run — through the
+   ragged engine (all 28 layers) and the two-phase engine (``ragged=False``:
+   batched prefill chunks, then decode ticks through paged_flash_decode;
+   cut to its first 14 layers since phase 4b came in, to keep the run's
+   time), each with
    bf16 and with int8 pools, each in two arms: captured (the default: each
    step replays its CUDA graph) and eager (``cuda_graph=False``).  Every
    request returns 32 tokens, the sampled logits stay finite, the pools
@@ -86,11 +93,26 @@ Phases (every check asserts; any failure exits non-zero):
    (``record_function`` ranges wrapped around the engine's methods here).
    Printed per path, pools and arm: wall ms per tick, tokens/s, busy ms per
    tick, idle share, host ranges.
+4b. Speculative serving at full width: glm4-9b (40 layers, untied head,
+   seed-0 random weights, bf16 activations, 9.40 B parameters) through the
+   captured ragged engine (phase 4's settings) on 8 requests of 64–512
+   prompt and 64 output tokens (four tiled prompts, four over tokens 1–4),
+   at spec_k 0 and 4, with bf16 and with int8 pools.  Per pool type the two
+   transcripts are equal; at spec_k 4 drafted = accepted + rejected,
+   drafts are accepted and rolled back; the engine counts 40 kernel
+   launches per ragged tick, one trace, the pools never move.  The bf16
+   arms are repeated under the CUDA profiler, whose "mma" attention-kernel
+   instances must equal that count.  Printed per arm: ticks, wall ms per
+   tick, tokens/s, tokens per sampled slot-tick, busy ms per tick and idle
+   share (bf16), the host ms of the logits copy.
 5. The kernel route against the gather route at full width in f32: after a
    prefill step, one ragged step of a mixed pack from the same state
    through each route; then, for the two-phase path, one decode tick after
-   a (8, 512) prefill chunk, a prefilled slot riding along idle.  Logits
-   agree to rtol 1e-3 (atol 1e-3 x max |logit|).
+   a (8, 512) prefill chunk, a prefilled slot riding along idle; then a
+   verify pack (every slot's decode token, then 4 draft tokens each,
+   ``logit_idx`` (8, 5)) at glm4-9b's widths cut to 4 layers, after
+   prefills to lens up to 2048.  Logits agree to rtol 1e-3 (atol 1e-3 x
+   max |logit|).
 6. Full-width qwen2-1.5b training (28 layers, seed-0 random weights, bf16
    activations over float32 parameters and AdamW moments, remat "full",
    use_flash=True) on the repo's train_4k shape (sequence 4096) cut to batch
@@ -218,20 +240,29 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 # 3. kernel against its plain version
 
 
+# context before a verify pack's decode token, per slot: the longest slot's
+# last draft sees cache_len = 2048 positions
+VERIFY_FILLS = [2043, 1500, 1100, 700, 420, 200, 64, 16]
+
+
 def make_pack(kind: str, *, B=8, kvH=2, G=6, hd=128, page=16, cache_len=2048,
-              T=256, seed=0):
+              T=256, drafts=4, seed=0):
     """A full-width ragged pack like the engine builds.  ``kind`` "decode":
     one decode token per slot, the rest of the budget invalid (lens 0);
     "mixed": decode tokens for six slots, a 128-token prefill chunk
     continuing slot 6 and a 100-token first chunk of slot 7, then an
-    invalid tail.  Each slot maps only the pages it uses; the rest of its
+    invalid tail; "verify" (speculative decoding): every slot's decode
+    token in a first section, then each slot's ``drafts`` draft tokens at
+    the next consecutive positions as a run of its own, then an invalid
+    tail.  Each slot maps only the pages it uses; the rest of its
     block-table row is the sentinel ``n_pages``.  Returns float32 q and
     pools and the int32 index tensors, on the CPU."""
     rng = np.random.RandomState(seed)
     pps = cache_len // page
     n_pages = B * pps
-    fills = [1800, 1500, 1100, 700, 420, 200, 64, 0]  # context before the pack
-    decoding = range(B) if kind == "decode" else range(6)
+    fills = (VERIFY_FILLS if kind == "verify"
+             else [1800, 1500, 1100, 700, 420, 200, 64, 0])  # context before the pack
+    decoding = range(6) if kind == "mixed" else range(B)
     lens, slot = [], []
     for b in decoding:  # a decode token sits at position fill: sees fill + 1
         slot.append(b)
@@ -240,6 +271,10 @@ def make_pack(kind: str, *, B=8, kvH=2, G=6, hd=128, page=16, cache_len=2048,
         for b, n in ((6, 128), (7, 100)):
             slot += [b] * n
             lens += list(range(fills[b] + 1, fills[b] + n + 1))
+    if kind == "verify":
+        for b in range(B):
+            slot += [b] * drafts
+            lens += list(range(fills[b] + 2, fills[b] + drafts + 2))
     slot += [0] * (T - len(slot))
     lens += [0] * (T - len(lens))
     perm = rng.permutation(n_pages)
@@ -397,7 +432,58 @@ def check_kernel(card: str) -> dict:
               f"events {cold_ms:.4f} ms, device {fmt_ms(cold_dev)}; plain "
               f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}), share of bound "
               f"{b_ms / ms:.3f} (events, warm); library call: none")
-    return {"err": errs[(torch.bfloat16, torch.bfloat16)], "timings": timings}
+    return {"err": errs[(torch.bfloat16, torch.bfloat16)], "timings": timings,
+            "shapes": check_kernel_shapes(card)}
+
+
+# the serving kernel's head layouts of this slice's configs: glm4-9b (32
+# query heads over 2 KV heads) and qwen1.5-4b (20 heads, multi-head)
+SHAPES = {"glm4-9b": dict(kvH=2, G=16, hd=128), "qwen1.5-4b": dict(kvH=20, G=1, hd=128)}
+
+
+def check_kernel_shapes(card: str) -> dict:
+    """Kernel 1 at glm4-9b's and qwen1.5-4b's head layouts on the mixed
+    pack, and at glm4-9b's on a verify pack (each slot's decode token, then
+    its 4 draft tokens as a later run), bf16 q over bf16 and int8 pools,
+    each through the "mma" variant, against the plain version with the
+    tolerances of ``check_kernel``; the device time beside the byte bound."""
+    from repro_torch.kernels import ragged_paged_flash as rpf
+
+    dev = torch.device("cuda")
+    out = {}
+    cases = [("glm4-9b", "mixed"), ("qwen1.5-4b", "mixed"), ("glm4-9b", "verify")]
+    for arch, kind in cases:
+        pack = make_pack(kind, **SHAPES[arch])
+        for kv_dt in (torch.bfloat16, torch.int8):
+            args = kernel_inputs(pack, torch.bfloat16, kv_dt, dev)
+            rpf.reset_launches()
+            got = rpf.ragged_paged_flash(*args[:6], ks=args[6], vs=args[7])
+            torch.cuda.synchronize()
+            variant = ran(rpf.launches_by_variant)
+            assert variant == "mma", (arch, kind, kv_dt, variant)
+            want = rpf.ragged_paged_flash_ref(*args[:6], ks=args[6], vs=args[7])
+            torch.testing.assert_close(got.float(), want.float(), rtol=0.0, atol=2e-2)
+            assert bool((got[args[5] == 0] == 0).all()), "lens == 0 rows must be zeros"
+            rel = row_rel_err(got, want)
+            assert rel <= BF16_ROW_RTOL, (arch, kind, kv_dt, rel)
+            err = float((got.float() - want.float()).abs().max())
+            del want
+            call = lambda a=args: rpf.ragged_paged_flash(  # noqa: E731
+                *a[:6], ks=a[6], vs=a[7])
+            dev_ms = device_ms(call, iters=50)
+            b_ms, b_by = bound(args)
+            share = "not measured" if dev_ms is None else f"{b_ms / dev_ms:.4f}"
+            T, kvH, G, hd = args[0].shape
+            print(f"ragged_paged_flash {arch} (kvH {kvH}, G {G}, hd {hd}) {kind} "
+                  f"pack, bf16 q, pools {kv_dt}, variant {variant}, on {card}: max "
+                  f"|err| {err:.3e}, max row |err| / |ref| {rel:.3e} (tol atol 2e-2, "
+                  f"row_rtol {BF16_ROW_RTOL}); device {fmt_ms(dev_ms)}, bound "
+                  f"{b_ms:.5f} ms ({b_by}), share of bound {share} (device)")
+            out[(arch, kind, str(kv_dt))] = dict(err=err, device_ms=dev_ms,
+                                                 bound_ms=b_ms, bound_by=b_by)
+            del args, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def make_decode_pack(*, B=8, kvH=2, G=6, hd=128, page=16, cache_len=2048,
@@ -850,6 +936,9 @@ def _ranged(name, fn):
     return run
 
 
+TWO_PHASE_LAYERS = 14  # phase 4's two-phase path: half of qwen2-1.5b's 28
+
+
 class RecordsLost(AssertionError):
     """A profiled run recorded fewer kernel instances than were launched."""
 
@@ -924,25 +1013,7 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     prompts += [rng.randint(0, cfg.vocab_size, n)
                 for n in (32, 700, 450, 96, 260, 610)]
     if profile == "cuda":
-        # one profiler cycle per tick, accumulated: in one long session the
-        # profiler now and then lost kernel records, of graph replays and of
-        # eager launches alike; per-tick cycles lose fewer, but not none, so
-        # a run that lost some raises RecordsLost and serve_profiled repeats
-        # it.  Each cycle costs a few hundred ms of host time; the wall time
-        # comes from the unprofiled run.
-        prof = torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA],
-            schedule=torch.profiler.schedule(wait=0, warmup=0, active=1),
-            acc_events=True)
-        tick = eng.tick
-
-        def profiled_tick():
-            out = tick()
-            torch.cuda.synchronize()
-            prof.step()
-            return out
-
-        eng.tick = profiled_tick
+        prof = tick_profiler(eng)
     elif profile == "cpu":
         prof = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU])
@@ -989,7 +1060,7 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     tag = f", profiled ({profile})" if profile else ""
     kind = ("ragged" if ragged else
             f"two-phase ({st['chunk_ticks']} prefill, {st['decode_ticks']} decode ticks)")
-    print(f"serve qwen2-1.5b FULL ({cfg.n_layers} layers), {kind}, pools "
+    print(f"serve qwen2-1.5b FULL width ({cfg.n_layers} layers), {kind}, pools "
           f"{kv_dtype or 'bfloat16'}, {arm}{tag}, on {card}: {len(handles)} "
           f"requests, {toks} tokens in {wall:.3f} s = {toks / wall:.1f} "
           f"tokens/s, {ticks} ticks, {1e3 * wall / ticks:.2f} ms/tick, peak "
@@ -1009,43 +1080,8 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
               f"per launch, {kernel_ms / ticks:.3f} ms per tick, "
               f"{kernel_ms / (1e3 * wall):.3f} of the wall time")
     if profile == "cuda":
-        by_name, count = {}, {}
-        for e in prof.key_averages():
-            us = _device_us(e)
-            if us > 0:
-                by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
-                count[e.key] = count.get(e.key, 0) + e.count
-        busy = sum(by_name.values())
-        if busy == 0:
-            print("  profiler: no device time recorded (not measured)")
-            return out
-        out["busy_ms"] = busy
-        print(f"  profiler: device busy {busy:.3f} ms = {busy / ticks:.3f} "
-              f"ms per tick, {busy / (1e3 * wall):.3f} of this run's wall "
-              f"time; top kernels by device time:")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"    {ms:9.3f} ms  {ms / busy:.3f}  {name[:110]}")
-        mma = sum(n for name, n in count.items() if MMA_KERNELS[kname] in name)
-        if mma == 0:
-            raise AssertionError(
-                f"the profiler recorded {busy:.3f} ms of device time but no "
-                f"{MMA_KERNELS[kname]} instance: it does not break the {arm} "
-                f"run down into its kernels, so the run cannot show that the "
-                f"serving kernel ran")
-        if mma < launches:
-            raise RecordsLost(f"the profiler recorded {mma} of {launches} "
-                              f"{MMA_KERNELS[kname]} instances ({arm} arm)")
-        assert mma == launches, (f"{MMA_KERNELS[kname]} ran {mma} times, "
-                                 f"the engine counted {launches} launches")
-        k_ms = sum(ms for name, ms in by_name.items()
-                   if any(k in name for k in SERVE_KERNELS[kname]))
-        out["kernel_device_ms"] = k_ms
-        print(f"  {kname}: {mma} {MMA_KERNELS[kname]} instances "
-              f"({cfg.n_layers} x {kernel_ticks} kernel ticks = {launches}); "
-              f"device time "
-              f"(profiler, all its kernels) {k_ms:.3f} ms = "
-              f"{k_ms / launches:.4f} ms per launch, {k_ms / busy:.3f} of the "
-              f"busy time")
+        out.update(tally_profile(prof, kname, cfg, launches, kernel_ticks, ticks,
+                                 wall, arm))
     elif profile == "cpu":
         host = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
                 if e.key in HOST_RANGES}
@@ -1057,18 +1093,88 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     return out
 
 
+def tally_profile(prof, kname, cfg, launches, kernel_ticks, ticks, wall,
+                  arm) -> dict:
+    """A CUDA-profiled serving run's numbers: device busy time, the top
+    kernels, and the serving kernel's "mma" attention-kernel instances,
+    which must equal the engine's ``launches`` (fewer raises
+    ``RecordsLost``, more or none fails).  Returns {"busy_ms",
+    "kernel_device_ms"}, empty when the profiler recorded no device time."""
+    by_name, count = {}, {}
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+            count[e.key] = count.get(e.key, 0) + e.count
+    busy = sum(by_name.values())
+    if busy == 0:
+        print("  profiler: no device time recorded (not measured)")
+        return {}
+    print(f"  profiler: device busy {busy:.3f} ms = {busy / ticks:.3f} "
+          f"ms per tick, {busy / (1e3 * wall):.3f} of this run's wall "
+          f"time; top kernels by device time:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:9.3f} ms  {ms / busy:.3f}  {name[:110]}")
+    mma = sum(n for name, n in count.items() if MMA_KERNELS[kname] in name)
+    if mma == 0:
+        raise AssertionError(
+            f"the profiler recorded {busy:.3f} ms of device time but no "
+            f"{MMA_KERNELS[kname]} instance: it does not break the {arm} "
+            f"run down into its kernels, so the run cannot show that the "
+            f"serving kernel ran")
+    if mma < launches:
+        raise RecordsLost(f"the profiler recorded {mma} of {launches} "
+                          f"{MMA_KERNELS[kname]} instances ({arm} arm)")
+    assert mma == launches, (f"{MMA_KERNELS[kname]} ran {mma} times, "
+                             f"the engine counted {launches} launches")
+    k_ms = sum(ms for name, ms in by_name.items()
+               if any(k in name for k in SERVE_KERNELS[kname]))
+    print(f"  {kname}: {mma} {MMA_KERNELS[kname]} instances "
+          f"({cfg.n_layers} x {kernel_ticks} kernel ticks = {launches}); "
+          f"device time "
+          f"(profiler, all its kernels) {k_ms:.3f} ms = "
+          f"{k_ms / launches:.4f} ms per launch, {k_ms / busy:.3f} of the "
+          f"busy time")
+    return {"busy_ms": busy, "kernel_device_ms": k_ms}
+
+
+def tick_profiler(eng):
+    """A CUDA-activity profiler with one cycle per engine tick (each tick
+    waited on), wrapped around ``eng.tick``: in one long session the
+    profiler now and then lost kernel records, of graph replays and of
+    eager launches alike; per-tick cycles lose fewer, but not none, so a
+    run that lost some raises RecordsLost and serve_profiled repeats it.
+    Each cycle costs a few hundred ms of host time; the wall time comes
+    from the unprofiled run."""
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=0, warmup=0, active=1),
+        acc_events=True)
+    tick = eng.tick
+
+    def profiled_tick():
+        out = tick()
+        torch.cuda.synchronize()
+        prof.step()
+        return out
+
+    eng.tick = profiled_tick
+    return prof
+
+
 def serve_profiled(params, cfg, kv_dtype, card: str, *, tries: int = 3,
-                   **kw) -> dict:
-    """``serve_full`` under the CUDA profiler, run again (up to ``tries``
-    runs) while the profiler records fewer attention-kernel instances than
-    the engine launched.  The profiler drops a kernel record now and then
+                   run=None, **kw) -> dict:
+    """``run`` (``serve_full`` by default) under the CUDA profiler, run
+    again (up to ``tries`` runs) while the profiler records fewer
+    attention-kernel instances than the engine launched.  The profiler drops a kernel record now and then
     (eager launches too, which the wrappers count exactly), so a short count
     alone does not show that a kernel failed to run; the check stays exact:
     one run must record every launch, and a count above the launches fails
     at once."""
+    run = run or serve_full
     for attempt in range(1, tries + 1):
         try:
-            return serve_full(params, cfg, kv_dtype, card, profile="cuda", **kw)
+            return run(params, cfg, kv_dtype, card, profile="cuda", **kw)
         except RecordsLost as e:
             if attempt == tries:
                 raise
@@ -1120,6 +1226,151 @@ def serve_arms(params, cfg, kv_dtype, card: str, *, ragged: bool) -> dict:
           f"({res['captured']['tokens']} tokens); wall time per tick captured "
           f"/ eager = {res['captured']['wall_ms'] / res['captured']['ticks'] / (res['eager']['wall_ms'] / res['eager']['ticks']):.3f} "
           f"[{time.perf_counter() - t0:.1f} s]")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 4b. full-width speculative serving (glm4-9b)
+
+SPEC_K = 4
+SPEC_TOKENS = 64  # output tokens per request
+
+
+def spec_prompts(vocab: int, seed: int = 5) -> list:
+    """tests/test_speculative.py's two prompt families at full vocabulary,
+    64–512 tokens: four "tiled" prompts (a short random pattern repeated,
+    which prompt lookup predicts) and four over the alphabet 1–4 (lookup
+    always drafts, the model often disagrees: rejections and rollbacks)."""
+    rng = np.random.RandomState(seed)
+    tiled = [np.tile(rng.randint(0, vocab, p), -(-n // p))[:n]
+             for p, n in ((6, 64), (8, 200), (12, 352), (16, 512))]
+    return tiled + [rng.randint(1, 5, n) for n in (96, 240, 416, 480)]
+
+
+def serve_spec(params, cfg, kv_dtype, card: str, *, spec_k: int,
+               profile=None) -> dict:
+    """The speculative workload (``spec_prompts``, 64 tokens each) through
+    the captured ragged engine at ``spec_k`` (0: unspeculated), phase 4's
+    settings.  Asserts every request's length, finite logits, the pools in
+    place, the replay-aware kernel count (layers x ragged ticks, every
+    replay; the wrappers count nothing), one trace, and, with ``spec_k``,
+    the draft ledger: drafted = accepted + rejected, drafts accepted and
+    rolled back.  ``profile="cuda"`` counts the "mma" attention-kernel
+    instances against that count (``tally_profile``).  The host time of
+    the logits copy is read around the ragged step's ``fetch``."""
+    from repro_torch.kernels import ragged_paged_flash as rpf
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(params, cfg, batch_size=8, cache_len=2048, page_size=16,
+                      prefill_chunk=128, token_budget=256, flash_decode=True,
+                      kv_dtype=kv_dtype, spec_k=spec_k, device=params.device)
+    ptrs = [t.data_ptr() for t in eng.pool_tensors()]  # builds the steps
+    steps = [eng._ragged_step] + ([eng._rollback] if spec_k else [])
+    st = eng.stats
+    assert all(s.captured for s in steps), "capture state"
+    assert st["graph_captures"] == len(steps) and st["traces"] == 1, st
+    sample, fetch, fetch_s = eng._sample, eng._ragged_step.fetch, [0.0]
+
+    def checked_sample(req, row, ordinal):
+        assert math.isfinite(row.min()) and math.isfinite(row.max()), \
+            "non-finite logits"
+        return sample(req, row, ordinal)
+
+    def timed_fetch():
+        t = time.perf_counter()
+        rows = fetch()
+        fetch_s[0] += time.perf_counter() - t
+        return rows
+
+    eng._sample, eng._ragged_step.fetch = checked_sample, timed_fetch
+    prof = tick_profiler(eng) if profile == "cuda" else contextlib.nullcontext()
+    prompts = spec_prompts(cfg.vocab_size)
+    torch.cuda.synchronize()
+    rpf.reset_launches()
+    with prof:
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_tokens=SPEC_TOKENS) for p in prompts]
+        results = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    st = eng.stats
+    assert all(len(results[h]) == SPEC_TOKENS for h in handles), \
+        {int(h): len(results[h]) for h in handles}
+    ticks, kticks, launches = st["ticks"], st["ragged_ticks"], st["kernel_launches"]
+    assert launches == cfg.n_layers * kticks > 0 and rpf.launches == 0, (
+        launches, kticks, rpf.launches)
+    assert st["traces"] == 1, st
+    assert [t.data_ptr() for t in eng.pool_tensors()] == ptrs, "pools moved"
+    assert eng.pool.pages_in_use == 0 and eng.reclaimable_pages == eng.n_pages
+    if spec_k:
+        assert st["spec_drafted"] == st["spec_accepted"] + st["spec_rejected"], st
+        assert st["spec_drafted"] > 0 and st["spec_accepted"] > 0, st
+        assert st["spec_rollbacks"] > 0, st
+    toks = sum(len(results[h]) for h in handles)
+    arm = f"spec_k {spec_k}"
+    tag = ", profiled (cuda)" if profile else ""
+    print(f"serve {cfg.name} FULL ({cfg.n_layers} layers), ragged, captured, "
+          f"pools {kv_dtype or 'bfloat16'}, {arm}{tag}, on {card}: "
+          f"{len(handles)} requests, {toks} tokens in {wall:.3f} s = "
+          f"{toks / wall:.1f} tokens/s, {ticks} ticks, {1e3 * wall / ticks:.2f} "
+          f"ms/tick, {toks / st['sampled_slot_ticks']:.3f} tokens per sampled "
+          f"slot-tick, logits copy {1e3 * fetch_s[0] / ticks:.3f} ms/tick "
+          f"(host), drafted {st['spec_drafted']}, accepted "
+          f"{st['spec_accepted']}, rejected {st['spec_rejected']}, rollbacks "
+          f"{st['spec_rollbacks']}, kernel launches {launches} "
+          f"({cfg.n_layers} x {kticks} ragged ticks), graphs captured "
+          f"{st['graph_captures']}")
+    out = dict(wall_ms=1e3 * wall, ticks=ticks, tokens=toks, busy_ms=None,
+               launches=launches, sampled=st["sampled_slot_ticks"],
+               fetch_ms=1e3 * fetch_s[0],
+               transcripts=[list(results[h]) for h in handles],
+               spec={k: st[k] for k in ("spec_drafted", "spec_accepted",
+                                        "spec_rejected", "spec_rollbacks")})
+    if profile == "cuda":
+        out.update(tally_profile(prof, "ragged_paged_flash", cfg, launches,
+                                 kticks, ticks, wall, arm))
+    return out
+
+
+def spec_phase(card: str) -> dict:
+    """glm4-9b FULL (40 layers, untied head, seed-0 random weights, bf16
+    activations) serves the speculative workload captured at spec_k 0 and
+    4, with bf16 and with int8 pools: each pool type's two transcripts must
+    be equal token for token.  The bf16 arms are repeated once each under
+    the CUDA profiler (busy time, idle share, kernel instances)."""
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import model as M
+
+    cfg = get_config("glm4-9b")
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    print(f"glm4-9b FULL: {param_count(cfg) / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    res = {}
+    for kv in (None, "int8"):
+        for k in (0, SPEC_K):
+            res[(kv, k)] = serve_spec(params, cfg, kv, card, spec_k=k)
+            gc.collect()
+        assert res[(kv, 0)]["transcripts"] == res[(kv, SPEC_K)]["transcripts"], \
+            f"speculative transcripts differ (pools {kv or 'bfloat16'})"
+    for k in (0, SPEC_K):
+        res[(None, k)]["busy_ms"] = serve_profiled(
+            params, cfg, None, card, run=serve_spec, spec_k=k).get("busy_ms")
+    for (kv, k), r in res.items():
+        wall_tick = r["wall_ms"] / r["ticks"]
+        busy = ("not measured" if r["busy_ms"] is None else
+                f"{r['busy_ms'] / r['ticks']:.3f} ms")
+        idle = ("not measured" if r["busy_ms"] is None else
+                f"{1 - r['busy_ms'] / r['ticks'] / wall_tick:.3f}")
+        print(f"speculative serving, glm4-9b, pools {kv or 'bfloat16'}, spec_k "
+              f"{k}, captured, on {card}: {r['ticks']} ticks, {wall_tick:.3f} ms "
+              f"per tick, {r['tokens'] / r['wall_ms'] * 1e3:.1f} tokens/s, "
+              f"{r['tokens'] / r['sampled']:.3f} tokens per sampled slot-tick, "
+              f"device busy {busy} per tick (profiled repeat), idle share "
+              f"{idle}, logits copy {r['fetch_ms'] / r['ticks']:.3f} ms per "
+              f"tick (host), {r['spec']}")
+    del params
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1187,6 +1438,65 @@ def route_logits(params, cfg, flashes, *, B, T, cache_len, page, seed):
                            for ss in state["layers"]]}
         rng = np.random.RandomState(seed + 1)  # the same tokens every run
         out.append(step(copy, mixed, flash))
+    return out
+
+
+def verify_route_logits(params, cfg, flashes, *, fills, drafts, T, cache_len,
+                        page, seed):
+    """Prefill slot b to ``fills[b]`` tokens from a fresh state (gather
+    route, one slot's chunk of at most T tokens a step), then ONE verify
+    step — every slot's decode token, then each slot's ``drafts`` draft
+    tokens as a later run, ``logit_idx`` (B, 1 + drafts) — from that state
+    once per entry of ``flashes`` (each on its own copy).  Returns each
+    run's (B, 1 + drafts, V) logits, in order."""
+    from repro_torch.models import model as M
+
+    dev = params.device
+    B = len(fills)
+    pps = cache_len // page
+    n_pages = B * pps
+    state = M.init_paged_state(params, cfg, B, cache_len, page_size=page,
+                               n_pages=n_pages)
+    rows = torch.arange(n_pages, dtype=torch.int32, device=dev).reshape(B, pps)
+    tmpl = {"layers": [[{k: v.clone() for k, v in c.items()} for c in ss]
+                       for ss in state["layers"]]}
+    M.reset_paged_slots(cfg, state, tmpl, torch.ones(B, dtype=torch.bool, device=dev),
+                        rows, torch.zeros(B, dtype=torch.int32, device=dev))
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    for b, fill in enumerate(fills):
+        for start in range(0, fill, T):
+            c = min(T, fill - start)
+            vecs = pack([(b, start, c)], T,
+                         rng.randint(0, cfg.vocab_size, T).astype(np.int32))
+            with torch.no_grad():
+                M.ragged_step(params, cfg, state, *map(t, vecs), width=T)
+    R = 1 + drafts
+    tokens = rng.randint(0, cfg.vocab_size, T).astype(np.int32)
+    slot, q_pos = np.zeros(T, np.int32), np.zeros(T, np.int32)
+    seq, valid = np.zeros(T, np.int32), np.zeros(T, bool)
+    logit_idx = np.full((B, R), T, np.int32)
+    slot[:B], q_pos[:B], valid[:B] = np.arange(B), fills, True
+    logit_idx[:, 0] = np.arange(B)
+    n = B
+    for b, fill in enumerate(fills):
+        slot[n:n + drafts], valid[n:n + drafts] = b, True
+        q_pos[n:n + drafts] = fill + 1 + np.arange(drafts)
+        seq[n:n + drafts] = 1 + np.arange(drafts)
+        logit_idx[b, 1:] = n + np.arange(drafts)
+        n += drafts
+    out = []
+    for flash in flashes:
+        copy = {"layers": [[{k: v.clone() for k, v in c.items()} for c in ss]
+                           for ss in state["layers"]]}
+        with torch.no_grad():
+            logits, _ = M.ragged_step(
+                params, cfg, copy, *map(t, (tokens, slot, q_pos, seq, valid,
+                                            logit_idx)),
+                width=R, flash_decode=flash)
+        assert logits.shape == (B, R, cfg.vocab_size), logits.shape
+        out.append(logits.float().cpu())
+        del copy
     return out
 
 
@@ -1442,7 +1752,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
+    from repro_torch.configs import Stage, get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.kernels import ragged_paged_flash as rpf
@@ -1490,14 +1800,22 @@ def main() -> int:
     launches = serving[(True, None)]["captured"]["launches"]
     assert launches > 0, "the serving path never launched the kernel"
     serving[(True, "int8")] = serve_arms(params, cfg, "int8", card, ragged=True)
-    two = serve_arms(params, cfg, None, card, ragged=False)["captured"]
+    del params
+    # the two-phase path at half depth, to keep the whole run within its
+    # time (PERF.md)
+    half = cfg.replace(stages=(Stage(cfg.stages[0].pattern, TWO_PHASE_LAYERS),))
+    params = M.init_params(half, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    two = serve_arms(params, half, None, card, ragged=False)["captured"]
     decode_launches = two["launches"]
-    assert decode_launches == cfg.n_layers * two["decode_ticks"] > 0, \
+    assert decode_launches == half.n_layers * two["decode_ticks"] > 0, \
         (decode_launches, two)
-    serve_arms(params, cfg, "int8", card, ragged=False)
+    serve_arms(params, half, "int8", card, ragged=False)
     del params
     torch.cuda.empty_cache()
     phase_done("phase 4")
+    spec_phase(card)
+    phase_done("phase 4b")
 
     cfg32 = cfg.replace(dtype="float32")
     p32 = M.init_params(cfg32, generator=torch.Generator("cuda").manual_seed(0),
@@ -1515,6 +1833,21 @@ def main() -> int:
     print(f"two-phase decode tick, kernel route vs gather route, full width "
           f"f32: max |diff| {float((df - dg).abs().max()):.3e} (max |logit| "
           f"{scale:.2f})")
+    del p32
+    torch.cuda.empty_cache()
+    glm = get_config("glm4-9b")
+    glm32 = glm.replace(dtype="float32", stages=(Stage(glm.stages[0].pattern, 4),))
+    p32 = M.init_params(glm32, generator=torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    vf, vg = verify_route_logits(p32, glm32, (True, False), fills=VERIFY_FILLS,
+                                 drafts=SPEC_K, T=256, cache_len=2048, page=16,
+                                 seed=4)
+    scale = float(vg.abs().max())
+    torch.testing.assert_close(vf, vg, rtol=1e-3, atol=1e-3 * scale)
+    print(f"verify pack (8 slots x (1 + {SPEC_K}) rows, lens up to 2048), kernel "
+          f"route vs gather route, glm4-9b widths f32 (4 layers): logits "
+          f"{tuple(vf.shape)}, max |diff| {float((vf - vg).abs().max()):.3e} "
+          f"(max |logit| {scale:.2f})")
     del p32
     torch.cuda.empty_cache()
     phase_done("phase 5")

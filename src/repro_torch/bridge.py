@@ -10,6 +10,7 @@ and hand them here, so this module never sees JAX.
   1); in the serving layout matrices, biases and the embedding are cast to
   the activation dtype and norm scales stay float32; in the training layout
   (``for_training=True``) every leaf is in the parameter dtype, with grads.
+  An untied config's ``head.out_head`` (d, V) is a matrix like the others.
 - ``params_to_numpy`` / ``grads_to_numpy`` lay a ``Model``'s parameters,
   or a list of tensors in ``Model.parameters()`` order (gradients, AdamW
   moments), out like the JAX pytree, so tests compare leaf by leaf.
@@ -54,9 +55,11 @@ def params_from_numpy(tree: Dict, cfg: ModelCfg, device,
             g: {k: _tensor(v, norm_dt if g.endswith("norm") else dt, device)
                 for k, v in leaves.items()}
             for g, leaves in bp.items()}, for_training) for bp in blocks])
+    head = tree.get("head")
     return M.Model(_tensor(tree["embed"]["tok_embed"], dt, device), stages,
                    _tensor(tree["final_norm"]["scale"], norm_dt, device),
-                   for_training)
+                   for_training,
+                   None if head is None else _tensor(head["out_head"], dt, device))
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

@@ -19,7 +19,9 @@ pattern position] per stage]}) that every serving function here updates in
 place.
 
 Supported: decoder token models whose every block is global attention with
-a dense FFN.  Everything else raises ``NotImplementedError``.
+a dense FFN, with a tied or an untied output head (``head.out_head``, (d,
+V), as JAX's ``{"head": {"out_head"}}``).  Everything else raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from repro_torch.configs.base import ModelCfg
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embeddings as emb
-from repro_torch.models.layers.common import embed_init
+from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.norms import rmsnorm
 
 MOE_LB_WEIGHT = 0.01
@@ -46,8 +48,6 @@ def check_supported(cfg: ModelCfg) -> None:
         raise NotImplementedError(
             "audio/vision frontends and encoders are not ported: the ported "
             "slices cover decoder token models")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied output heads are not ported yet")
     if cfg.abs_pos != "none":
         raise NotImplementedError("absolute position encodings are not ported yet")
     for st in cfg.stages:
@@ -57,17 +57,20 @@ def check_supported(cfg: ModelCfg) -> None:
 
 class Model(nn.Module):
     """Parameter container mirroring the JAX pytree (see module docstring);
-    ``trainable`` sets ``requires_grad`` of the embedding and final norm
-    (blocks carry their own)."""
+    ``out_head`` (untied configs only) becomes ``head.out_head``.
+    ``trainable`` sets ``requires_grad`` of the embedding, final norm and
+    head (blocks carry their own)."""
 
     def __init__(self, tok_embed: torch.Tensor, stages, final_scale: torch.Tensor,
-                 trainable: bool = False):
+                 trainable: bool = False, out_head: torch.Tensor = None):
         super().__init__()
         self.embed = nn.ParameterDict(
             {"tok_embed": nn.Parameter(tok_embed, requires_grad=trainable)})
         self.stages = nn.ModuleList(nn.ModuleList(st) for st in stages)
         self.final_norm = nn.ParameterDict(
             {"scale": nn.Parameter(final_scale, requires_grad=trainable)})
+        self.head = None if out_head is None else nn.ParameterDict(
+            {"out_head": nn.Parameter(out_head, requires_grad=trainable)})
 
     @property
     def device(self) -> torch.device:
@@ -94,7 +97,19 @@ def init_params(cfg: ModelCfg, *, generator: torch.Generator = None,
               for st in cfg.stages]
     final = torch.ones(cfg.d_model, device=dev,
                        dtype=dt if for_training else torch.float32)
-    return Model(tok, stages, final, trainable=for_training)
+    head = None
+    if not cfg.tie_embeddings:
+        head = dense_init(generator, (cfg.d_model, cfg.vocab_size),
+                          device=dev).to(dt)
+    return Model(tok, stages, final, trainable=for_training, out_head=head)
+
+
+def _logits(params: Model, cfg: ModelCfg, x: torch.Tensor) -> torch.Tensor:
+    """The output head: ``head.out_head`` for untied configs, the
+    embedding's transpose for tied ones (JAX ``model.py:78, 138``)."""
+    if cfg.tie_embeddings:
+        return emb.logits_from_hidden({}, x, tied_embed=params.embed["tok_embed"])
+    return emb.logits_from_hidden(params.head, x)
 
 
 # ---------------------------------------------------------------------------
@@ -113,8 +128,7 @@ def forward(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
         x, a = tfm.stage_fwd(sp, cfg, st, x, positions=positions)
         aux = tfm._add_aux(aux, a)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = emb.logits_from_hidden({}, x, tied_embed=params.embed["tok_embed"])
-    return logits, aux
+    return _logits(params, cfg, x), aux
 
 
 def _xent(logits, labels):
@@ -174,8 +188,7 @@ def paged_step(params: Model, cfg: ModelCfg, state, tokens, q_pos, valid, *,
     if not with_logits:
         return None, state
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = emb.logits_from_hidden({}, x, tied_embed=params.embed["tok_embed"])
-    return logits, state
+    return _logits(params, cfg, x), state
 
 
 def ragged_step(params: Model, cfg: ModelCfg, state, tokens, slot, q_pos,
@@ -187,12 +200,10 @@ def ragged_step(params: Model, cfg: ModelCfg, state, tokens, slot, q_pos,
     logit_idx: (B,) index into the pack of each slot's sampled token (T =
     no sample; that row's logits are garbage the engine ignores).  Writes
     the pack into the state in place and returns (logits (B, V), state).
-    The speculative (B, R) form of ``logit_idx`` comes with the speculative
-    decoding slice."""
-    if logit_idx.ndim != 1:
-        raise NotImplementedError(
-            "logit_idx of shape (B, R) (speculative verify rows) is not "
-            "ported yet: it comes with the speculative-decoding slice")
+    A speculative engine passes (B, R) instead — row 0 the slot's decode
+    token, rows 1..R-1 its packed draft tokens, T where unused — and gets
+    (B, R, V) back: only those B·R rows go through the final norm and the
+    head."""
     dt = getattr(torch, cfg.dtype)
     x = emb.embed_tokens(params.embed, tokens.long()[None], dt)  # (1,T,D)
     for st, sp, ss in zip(cfg.stages, params.stages, state["layers"]):
@@ -200,10 +211,11 @@ def ragged_step(params: Model, cfg: ModelCfg, state, tokens, slot, q_pos,
                                      valid, width=width,
                                      flash_decode=flash_decode)
     # only the sampled rows go through the final norm and the head
-    sel = x[0][torch.clamp(logit_idx.long(), max=x.shape[1] - 1)]
+    flat = logit_idx.reshape(-1).long()
+    sel = x[0][torch.clamp(flat, max=x.shape[1] - 1)]
     sel = rmsnorm(params.final_norm, sel, cfg.norm_eps)
-    logits = emb.logits_from_hidden({}, sel, tied_embed=params.embed["tok_embed"])
-    return logits, state
+    logits = _logits(params, cfg, sel)
+    return logits.reshape(logit_idx.shape + logits.shape[-1:]), state
 
 
 def reset_paged_slots(cfg: ModelCfg, state, init_state, mask, ptab_rows,
@@ -215,6 +227,21 @@ def reset_paged_slots(cfg: ModelCfg, state, init_state, mask, ptab_rows,
     shared and untouched — they double as the prefix cache."""
     for st, ss, is0 in zip(cfg.stages, state["layers"], init_state["layers"]):
         tfm.reset_stage_slots(st, ss, is0, mask, ptab_rows, prefix_len)
+    return state
+
+
+def rollback_paged_slots(cfg: ModelCfg, state, mask, new_len) -> Dict:
+    """Speculative rejection, in place: for slots where ``mask`` is set,
+    every written KV row at a position >= ``new_len`` (the slot's next
+    write position after its accepted draft prefix) goes dead — its
+    ``kpos`` entry drops to -1 and ``slen`` clamps to ``new_len``.  Pools,
+    scale pools and block tables stay untouched: the rejected rows lie in
+    pages the slot owns alone and the next tick's writes overwrite them.
+    mask: (B,) bool; new_len: (B,) int32, both on the state's device.
+    Masked writes only (no boolean indexing, no host synchronisation), so
+    it can run between graph replays on the step's stream."""
+    for st, ss in zip(cfg.stages, state["layers"]):
+        tfm.rollback_stage_slots(st, ss, mask, new_len)
     return state
 
 

@@ -305,3 +305,19 @@ def reset_stage_slots(stage: Stage, states: List[dict], init_states,
                 src = i_blk[name]
             leaf.copy_(torch.where(m, src, leaf))
     return states
+
+
+def rollback_stage_slots(stage: Stage, states: List[dict], mask, new_len):
+    """Speculative rejection, in place (JAX ``rollback_stage_slots``): for
+    masked slots, ``kpos`` entries holding a position >= ``new_len`` drop
+    to -1 and ``slen`` clamps down to ``new_len``; pools, scale pools and
+    block tables are left alone.  ``kpos`` stores absolute positions, so
+    the rejected tail is exactly the entries at or past ``new_len``.
+    Leaves are (layers, B, ...); mask, new_len: (B,)."""
+    for s_blk in states:
+        kpos, slen = s_blk["kpos"], s_blk["slen"]
+        m = mask[None, :]
+        nl = new_len.to(kpos.dtype)[None, :]
+        kpos.copy_(torch.where(m[..., None] & (kpos >= nl[..., None]), -1, kpos))
+        slen.copy_(torch.where(m, torch.minimum(slen, nl.to(slen.dtype)), slen))
+    return states

@@ -12,6 +12,16 @@ engine's on the same weights:
   budget; a slot whose prompt completes in the pack appends its first
   decode token right behind it.  One step (``serve_step.make_ragged_step``)
   runs the whole pack.
+- **Speculative decoding** (``spec_k > 0``, ragged only; or a
+  ``SpeculativeScheduler`` as ``scheduler=``).  A third section of the pack
+  takes, in the budget decode and prefill left, each decoding slot's
+  prompt-lookup draft chain at its next consecutive positions; the step's
+  ``logit_idx`` is (B, 1+spec_k), so one forward returns a verify row per
+  draft.  The engine emits the longest agreeing draft prefix plus the token
+  sampled from the first disagreeing row, and rolls ``kpos``/``slen`` of
+  rejected tails back (``serve_step.capture_spec_rollback``, a second
+  captured step).  Sampling is keyed per (request, ordinal), so transcripts
+  equal the unspeculated engine's at any temperature.
 - **Two-phase path** (``ragged=False``, the JAX engine's A/B baseline).  A
   tick with any prompt left to prefill runs one (B, ``prefill_chunk``)
   chunk step for every such slot; otherwise one (B, 1) decode tick for
@@ -35,13 +45,17 @@ engine's on the same weights:
 - **Capture.** The first tick with state builds each step of the engine's
   path once at its fixed shapes as a ``serve_step.CapturedStep``: (T,) and
   (B,) for the ragged step; (B, ``prefill_chunk``) for the chunk step and
-  (B, 1) for the decode tick of the two-phase path.  On a CUDA device each
+  (B, 1) for the decode tick of the two-phase path; with speculation the
+  ragged step's ``logit_idx`` is (B, R) and the rollback, over (B,) mask
+  and new lengths, is a second one.  On a CUDA device each
   is captured into a CUDA graph and replayed every tick — the port of
   JAX's one jitted program per step; a tick copies its pack into the
-  step's static inputs from pinned host buffers, and the sampled (B, V)
-  float32 logits come back through a pinned buffer.  ``cuda_graph=False``
-  runs the same steps eagerly instead, the counterpart of running JAX with
-  jit disabled (for A/B checks of the capture).  ``stats["traces"]``
+  step's static inputs from pinned host buffers, and the sampled (B, V) —
+  speculative: (B, R, V) — float32 logits come back through a pinned
+  buffer; a rollback replays on the same stream, ahead of the next tick.
+  ``cuda_graph=False`` runs the same steps eagerly instead, the
+  counterpart of running JAX with jit disabled (for A/B checks of the
+  capture).  ``stats["traces"]``
   counts what JAX counts, builds of the ragged step (1 on the ragged
   engine, 0 on the two-phase one); ``stats["graph_captures"]`` counts the
   captured graphs of either path (0 on the CPU).  After a capture the
@@ -50,7 +64,7 @@ engine's on the same weights:
   every replay.
 
 Left for later slices, each raising ``NotImplementedError`` naming it:
-speculative decoding (``spec_k>0``), the host-RAM tier (``host_pages>0``),
+the host-RAM tier (``host_pages>0``),
 tensor parallelism (``mesh``), fault injection (``fault_injector``), the
 reordering schedulers, and priority classes (``submit(priority>0)``),
 which are the only traffic under which the JAX engine preempts — so
@@ -75,9 +89,10 @@ from repro_torch.serve.errors import (DeadlineExceeded, EngineOverloaded,
 from repro_torch.serve.handle import Request, RequestHandle
 from repro_torch.serve.pool import (KV_ITEMSIZE, PagePool, _PrefixNode,
                                     kv_bytes_per_token, kv_page_bytes)
-from repro_torch.serve.scheduler import make_scheduler
+from repro_torch.serve.scheduler import SpeculativeScheduler, make_scheduler
 from repro_torch.serve.serve_step import (CapturedStep, capture_paged_step,
-                                          capture_ragged_step)
+                                          capture_ragged_step,
+                                          capture_spec_rollback)
 
 __all__ = ["ServeEngine", "kv_page_bytes", "kv_bytes_per_token"]
 
@@ -113,8 +128,6 @@ class ServeEngine:
                  spec_k: int = 0, preempt: bool = True,
                  max_queue: Optional[int] = None, fault_injector=None,
                  device=None, cuda_graph: bool = True):
-        if spec_k:
-            raise _later("speculative decoding (spec_k > 0)", "speculative-decoding")
         if host_pages:
             raise _later("the host-RAM KV tier (host_pages > 0)", "tiered-KV")
         if mesh is not None:
@@ -122,7 +135,21 @@ class ServeEngine:
         if fault_injector is not None:
             raise _later("fault injection (fault_injector=)", "preemption/chaos")
         self.scheduler = make_scheduler(scheduler)
+        # speculation rides the policy layer, as in JAX: spec_k wraps the
+        # policy in a SpeculativeScheduler, or one comes as scheduler=
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k and not isinstance(self.scheduler, SpeculativeScheduler):
+            if not ragged:
+                raise ValueError("speculative decoding needs the ragged "
+                                 "path (spec_k > 0 with ragged=False)")
+            self.scheduler = SpeculativeScheduler(self.scheduler,
+                                                  spec_k=spec_k)
         self.scheduler_name = self.scheduler.name
+        # every layer is paged global attention (check_supported below), the
+        # condition under which JAX lets a rollback undo a draft
+        self._spec_k = int(getattr(self.scheduler, "spec_k", 0))
+        self._draft = getattr(self.scheduler, "draft", None)
         self.device = resolve_device(device)
         M.check_supported(cfg)
         self.params = params.to(self.device)
@@ -132,6 +159,9 @@ class ServeEngine:
         self.page_size = page_size
         self.chunk = prefill_chunk
         self.budget = token_budget
+        # most tokens one slot adds to a pack: a prefill chunk and its
+        # handoff decode token, or a decode token and its draft chain
+        self.width = max(prefill_chunk + 1, 1 + self._spec_k)
         self.greedy = greedy
         self.ragged = ragged
         self.flash_decode = flash_decode
@@ -176,7 +206,7 @@ class ServeEngine:
                        "host_hits": 0, "host_pages_promoted": 0,
                        "host_pool_pages": 0,
                        "scheduler": self.scheduler_name,
-                       "spec_k": 0, "spec_drafted": 0,
+                       "spec_k": self._spec_k, "spec_drafted": 0,
                        "spec_accepted": 0, "spec_rejected": 0,
                        "spec_rollbacks": 0, "sampled_slot_ticks": 0,
                        "preemptions": 0, "resumes": 0,
@@ -199,6 +229,7 @@ class ServeEngine:
                        "graph_captures": 0}
         # the steps, built with the state (_ensure_state)
         self._ragged_step = self._chunk_step = self._decode_step = None
+        self._rollback = None
 
     # -- public surface ---------------------------------------------------
     def submit(self, prompt, max_tokens: int = 16, eos_id=None, *,
@@ -468,35 +499,76 @@ class ServeEngine:
     def _ragged_tick(self, state):
         """Pack one token budget and run the ragged step on it, then sample
         every slot that emits a token."""
-        arrays, n, sampling = self._pack_ragged()
+        arrays, n, sampling, drafted = self._pack_ragged()
         results: Dict[int, List[int]] = {}
         if n == 0:
             return state, results
         self._run_step(self._ragged_step, arrays)
         self._stats["ragged_ticks"] += 1
         self._stats["packed_tokens"] += n
-        if sampling:
-            rows = self._ragged_step.fetch()  # (B, V) float32
-            self._stats["sampled_slot_ticks"] += len(sampling)
-            for b in sampling:
-                req = self.slots[b].req
-                self._finish_token(
-                    b, self._sample(req, rows[b], len(req.out_tokens)),
-                    results)
+        if not sampling:
+            return state, results
+        rows = self._ragged_step.fetch()  # (B, V), speculative (B, R, V)
+        self._stats["sampled_slot_ticks"] += len(sampling)
+        accepted: Dict[int, int] = {}
+        for b in sampling:
+            req = self.slots[b].req
+            drafts = drafted.get(b, ())
+            # row j is the prediction given drafts 1..j: sampling it checks
+            # draft j+1 and, on a mismatch or past the chain, is the
+            # correction or bonus token, so a slot emits at least one
+            j = 0
+            tok = self._sample(req, rows[b, 0] if self._spec_k else rows[b],
+                               len(req.out_tokens))
+            while True:
+                self._finish_token(b, tok, results)
+                if (self.slots[b] is None or j >= len(drafts)
+                        or tok != drafts[j]):
+                    break
+                j += 1
+                self._stats["spec_accepted"] += 1
+                tok = self._sample(req, rows[b, j], len(req.out_tokens))
+            accepted[b] = j
+        if drafted:
+            self._roll_back(drafted, accepted)
         return state, results
+
+    def _roll_back(self, drafted: Dict[int, List[int]],
+                   accepted: Dict[int, int]) -> None:
+        """Kill the rows of rejected draft tails: ``kpos``/``slen`` at and
+        past each live slot's new write position.  A released slot needs
+        none: admission's reset rewrites its whole row."""
+        mask = np.zeros(self.B, bool)
+        new_len = np.zeros(self.B, np.int32)
+        for b, d in drafted.items():
+            j = accepted.get(b, 0)
+            if j < len(d):
+                self._stats["spec_rejected"] += len(d) - j
+                s = self.slots[b]
+                if s is not None:
+                    mask[b] = True
+                    new_len[b] = s.pos
+        if mask.any():
+            self._run_step(self._rollback, (mask, new_len))
+            self._stats["spec_rollbacks"] += int(mask.sum())
 
     def _pack_ragged(self):
         """One token budget: decode tokens first, then prefill chunks in
         slot order until the budget runs out; a slot whose prompt completes
-        in this pack appends its first decode token right behind it.
-        Returns (the step's host arrays, tokens packed, slots to sample)."""
-        T, W = self.budget, self.chunk + 1
+        in this pack appends its first decode token right behind it.  With
+        speculation, a third section: each slot that decoded from the start
+        of the pack gets its draft chain in what budget is left (drafts
+        never displace decode or prefill tokens).  Returns (the step's host
+        arrays, tokens packed, slots to sample, {slot: drafted tokens})."""
+        T, W = self.budget, self.width
         tokens = np.zeros(T, np.int32)
         slot = np.zeros(T, np.int32)
         q_pos = np.zeros(T, np.int32)
         seq_idx = np.full(T, W, np.int32)
         valid = np.zeros(T, bool)
-        logit_idx = np.full(self.B, T, np.int32)
+        logit_idx = np.full((self.B, 1 + self._spec_k) if self._spec_k
+                            else self.B, T, np.int32)
+        sample_idx = logit_idx[:, 0] if self._spec_k else logit_idx  # a view
         n = 0
         sampling: List[int] = []
         ready = [b for b, s in enumerate(self.slots)
@@ -506,7 +578,7 @@ class ServeEngine:
         for b in ready:
             s = self.slots[b]
             tokens[n], slot[n], q_pos[n] = s.last_tok, b, s.pos
-            seq_idx[n], valid[n], logit_idx[b] = 0, True, n
+            seq_idx[n], valid[n], sample_idx[b] = 0, True, n
             sampling.append(b)
             n += 1
         for b in filling:
@@ -529,10 +601,44 @@ class ServeEngine:
                 s.last_tok = int(s.req.prompt[-1])
                 if n < T:
                     tokens[n], slot[n], q_pos[n] = s.last_tok, b, s.pos
-                    seq_idx[n], valid[n], logit_idx[b] = c, True, n
+                    seq_idx[n], valid[n], sample_idx[b] = c, True, n
                     sampling.append(b)
                     n += 1
-        return (tokens, slot, q_pos, seq_idx, valid, logit_idx), n, sampling
+        drafted: Dict[int, List[int]] = {}
+        for b in ready if self._spec_k else ():
+            if n >= T:
+                break
+            s = self.slots[b]
+            req = s.req
+            # no draft past max_tokens - 1 (it could never be accepted)
+            room = min(self._spec_k,
+                       req.max_tokens - len(req.out_tokens) - 1, T - n)
+            if room < 1:
+                continue
+            hist = (np.concatenate([req.prompt, np.asarray(
+                req.out_tokens, np.int32)]) if req.out_tokens else req.prompt)
+            d = self._draft(hist, room)
+            if not d:
+                continue
+            k = len(d)
+            if __debug__:
+                # draft rows land past the prompt, in pages the slot owns
+                # alone: never in an indexed prefix page
+                for pi in range((s.pos + 1) // self.page_size,
+                                (s.pos + k) // self.page_size + 1):
+                    assert not self.pool.is_indexed(s.pages[pi]), \
+                        (b, pi, s.pages[pi])
+            tokens[n:n + k] = d
+            slot[n:n + k] = b
+            q_pos[n:n + k] = s.pos + 1 + np.arange(k)
+            seq_idx[n:n + k] = 1 + np.arange(k)
+            valid[n:n + k] = True
+            logit_idx[b, 1:1 + k] = n + np.arange(k)
+            drafted[b] = d
+            self._stats["spec_drafted"] += k
+            n += k
+        return ((tokens, slot, q_pos, seq_idx, valid, logit_idx), n,
+                sampling, drafted)
 
     def _run_step(self, step: CapturedStep, arrays) -> None:
         """Run one step on a pack and count its kernel launches."""
@@ -626,12 +732,16 @@ class ServeEngine:
         kw = dict(flash_decode=self.flash_decode, capture=self.cuda_graph)
         args = (self.cfg, self.params, self._state)
         if self.ragged:
-            # width = most tokens one slot contributes to a pack: a prefill
-            # chunk plus its handoff decode token
             self._ragged_step = capture_ragged_step(
-                *args, T=self.budget, B=self.B, width=self.chunk + 1, **kw)
+                *args, T=self.budget, B=self.B, width=self.width,
+                R=1 + self._spec_k, **kw)
             self._stats["traces"] += 1
             steps = [self._ragged_step]
+            if self._spec_k:
+                self._rollback = capture_spec_rollback(
+                    self.cfg, self._state, B=self.B, device=self.device,
+                    capture=self.cuda_graph)
+                steps.append(self._rollback)
         else:
             self._chunk_step = capture_paged_step(
                 *args, B=self.B, C=self.chunk, with_logits=False, **kw)

@@ -142,6 +142,14 @@ class PagePool:
         """Cached pages reclaimable under pressure (refcount 0)."""
         return sum(1 for p in self._page_node if self._ref[p] == 0)
 
+    def is_indexed(self, page: int) -> bool:
+        """True when the prefix index owns ``page``.  Only full PROMPT pages
+        are indexed, so a slot's decode and draft positions always land in
+        pages for which this is False: a rejected draft tail can never
+        touch an indexed prefix page (the engine asserts it when it packs
+        drafts)."""
+        return page in self._page_node
+
     def available(self, pinned: Sequence[int] = ()) -> int:
         """Pages an admission could obtain AFTER it pins ``pinned``: free +
         evictable, minus currently-refcount-0 cached pages the caller is

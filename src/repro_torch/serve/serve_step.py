@@ -8,13 +8,18 @@ steps of the two-phase path (``ragged=False``), which the JAX engine builds
 inline around ``models.model.paged_step``.  Both run eagerly and update the
 state's tensors in place, which is what keeps the pools at fixed addresses.
 
+``make_spec_rollback`` builds speculative decoding's control-plane mover
+(JAX ``make_spec_rollback``), which kills the position metadata of
+rejected draft rows.
+
 ``CapturedStep`` is the port of JAX's one jitted program per step: it owns
 static input tensors of the step's fixed shapes and, on a CUDA device,
 captures the step once into a CUDA graph (``torch.cuda.graph``) and
-replays it every call.  ``capture_ragged_step`` and ``capture_paged_step``
-build it for the engine.  The step's writes are shape-static
-(``kernels.ops.scatter_live``) and both serving kernels' wrappers make no
-host synchronisation, which is what lets the graph hold a whole step.
+replays it every call.  ``capture_ragged_step``, ``capture_paged_step`` and
+``capture_spec_rollback`` build it for the engine.  The step's writes are
+shape-static (``kernels.ops.scatter_live``) and both serving kernels'
+wrappers make no host synchronisation, which is what lets the graph hold a
+whole step.
 """
 from __future__ import annotations
 
@@ -35,9 +40,9 @@ WARMUP_CALLS = 2
 
 def make_ragged_step(cfg: ModelCfg, *, width: int, flash_decode: bool = False):
     """Build ``f(params, state, tokens, slot, q_pos, seq_idx, valid,
-    logit_idx) -> (logits (B, V), state)`` with all pack vectors (T,) and
-    ``logit_idx`` (B,), tensors on the params' device
-    (see ``models.model.ragged_step``)."""
+    logit_idx) -> (logits, state)`` with all pack vectors (T,) and
+    ``logit_idx`` (B,) or, speculative, (B, R), tensors on the params'
+    device; logits (B, V) or (B, R, V) (see ``models.model.ragged_step``)."""
 
     @torch.no_grad()
     def ragged_step(params, state, tokens, slot, q_pos, seq_idx, valid,
@@ -63,6 +68,19 @@ def make_paged_step(cfg: ModelCfg, *, with_logits: bool,
                             flash_decode=flash_decode)
 
     return paged_step
+
+
+def make_spec_rollback(cfg: ModelCfg):
+    """Build ``f(state, mask, new_len) -> state``: every masked slot's KV
+    rows at positions >= new_len go dead (``kpos`` -1, ``slen`` clamped;
+    pools, scales and block tables untouched), in place (see
+    ``models.model.rollback_paged_slots``)."""
+
+    @torch.no_grad()
+    def spec_rollback(state, mask, new_len):
+        return M.rollback_paged_slots(cfg, state, mask, new_len)
+
+    return spec_rollback
 
 
 def kernel_launches() -> int:
@@ -173,11 +191,16 @@ class CapturedStep:
         return self._out_host.numpy()
 
 
-def idle_ragged_pack(T: int, B: int, width: int) -> List[np.ndarray]:
+def _logit_shape(B: int, R: int) -> tuple:
+    """``logit_idx``'s shape: (B,) without verify rows, (B, R) with."""
+    return (B,) if R == 1 else (B, R)
+
+
+def idle_ragged_pack(T: int, B: int, width: int, R: int = 1) -> List[np.ndarray]:
     """An all-invalid ragged pack: no token writes, no row is sampled."""
     return [np.zeros(T, np.int32), np.zeros(T, np.int32),
             np.zeros(T, np.int32), np.full(T, width, np.int32),
-            np.zeros(T, bool), np.full(B, T, np.int32)]
+            np.zeros(T, bool), np.full(_logit_shape(B, R), T, np.int32)]
 
 
 def idle_paged_pack(B: int, C: int) -> List[np.ndarray]:
@@ -187,20 +210,39 @@ def idle_paged_pack(B: int, C: int) -> List[np.ndarray]:
 
 
 def capture_ragged_step(cfg: ModelCfg, params, state, *, T: int, B: int,
-                        width: int, flash_decode: bool = False,
+                        width: int, R: int = 1, flash_decode: bool = False,
                         capture: bool = True) -> CapturedStep:
-    """The ragged step at pack size T over B slots as a ``CapturedStep``:
+    """The ragged step at pack size T over B slots, with R verify rows a
+    slot (R = 1 + spec_k; 1 without speculation), as a ``CapturedStep``:
     ``run(tokens, slot, q_pos, seq_idx, valid, logit_idx)`` returns the
-    float32 logits (B, V); the cast runs inside the step."""
+    float32 logits, (B, V) at R = 1 and (B, R, V) otherwise; the cast runs
+    inside the step."""
     step = make_ragged_step(cfg, width=width, flash_decode=flash_decode)
 
     def fn(*inputs):
         return step(params, state, *inputs)[0].float()
 
     i32 = torch.int32
-    specs = [((T,), i32)] * 4 + [((T,), torch.bool), ((B,), i32)]
-    return CapturedStep(fn, specs, idle_ragged_pack(T, B, width),
+    specs = [((T,), i32)] * 4 + [((T,), torch.bool), (_logit_shape(B, R), i32)]
+    return CapturedStep(fn, specs, idle_ragged_pack(T, B, width, R),
                         device=params.device, capture=capture)
+
+
+def capture_spec_rollback(cfg: ModelCfg, state, *, B: int, device,
+                          capture: bool = True) -> CapturedStep:
+    """The speculative rollback over B slots as a ``CapturedStep``:
+    ``run(mask, new_len)`` with (B,) bool and int32 host arrays, no output.
+    Its idle input (no slot masked) leaves the state bit-identical; the
+    engine replays it on the step's stream after a tick that rejected
+    drafts."""
+    rollback = make_spec_rollback(cfg)
+
+    def fn(mask, new_len):
+        rollback(state, mask, new_len)
+
+    return CapturedStep(fn, [((B,), torch.bool), ((B,), torch.int32)],
+                        [np.zeros(B, bool), np.zeros(B, np.int32)],
+                        device=device, capture=capture)
 
 
 def capture_paged_step(cfg: ModelCfg, params, state, *, B: int, C: int,

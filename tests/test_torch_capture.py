@@ -3,7 +3,8 @@ capture itself on the card.
 
 CPU (the qwen2-1.5b smoke config):
 
-- under a ``TorchDispatchMode`` recorder, the ragged step, the prefill
+- under a ``TorchDispatchMode`` recorder, the ragged step (with (B,) and,
+  speculative, (B, R) ``logit_idx``), the speculative rollback, the prefill
   chunk step and the decode tick dispatch no ``aten.index``/``index_put``
   with a boolean index and no ``aten.nonzero``, ``_local_scalar_dense`` or
   ``masked_select`` — the ops that copy a count to the host and cannot be
@@ -115,6 +116,23 @@ def _ragged_pack(seed=0, vocab=512):
     return [tokens, slot, q_pos, seq, valid, logit_idx]
 
 
+# verify rows a slot in the speculative ragged step (1 + spec_k)
+R = 3
+
+
+def _verify_pack(seed=0, vocab=512):
+    """``_ragged_pack`` plus slot 2's two draft tokens at positions 8 and 9
+    as a run of their own, ``logit_idx`` (B, R)."""
+    tokens, slot, q_pos, seq, valid, last = _ragged_pack(seed, vocab)
+    logit_idx = np.full((B, R), T, np.int32)
+    logit_idx[:, 0] = last
+    n = int(valid.nonzero()[0].max()) + 1
+    slot[n:n + 2], q_pos[n:n + 2] = 2, [8, 9]
+    seq[n:n + 2], valid[n:n + 2] = [1, 2], True
+    logit_idx[2, 1:] = [n, n + 1]
+    return [tokens, slot, q_pos, seq, valid, logit_idx]
+
+
 def _paged_pack(width, seed=0, vocab=512):
     """(B, width): slot 0 full, slot 1 an invalid tail, slot 2 idle."""
     rng = np.random.RandomState(seed)
@@ -131,6 +149,9 @@ def _steps(cfg, params, state, flash):
     return {
         "ragged": SS.capture_ragged_step(cfg, params, state, T=T, B=B,
                                          width=C + 1, **kw),
+        "verify": SS.capture_ragged_step(cfg, params, state, T=T, B=B,
+                                         width=C + 1, R=R, **kw),
+        "rollback": SS.capture_spec_rollback(cfg, state, B=B, device="cpu"),
         "chunk": SS.capture_paged_step(cfg, params, state, B=B, C=C,
                                        with_logits=False, **kw),
         "decode": SS.capture_paged_step(cfg, params, state, B=B, C=1,
@@ -141,7 +162,15 @@ def _steps(cfg, params, state, flash):
 def _pack_for(kind, seed=0):
     if kind == "ragged":
         return _ragged_pack(seed)
+    if kind == "verify":
+        return _verify_pack(seed)
+    if kind == "rollback":  # slots 0 and 2 lose what lies past 2 and 8 + seed
+        return [np.asarray([True, False, True]),
+                np.asarray([2, 0, 8 + seed], np.int32)]
     return _paged_pack(C if kind == "chunk" else 1, seed)
+
+
+KINDS = ["ragged", "verify", "rollback", "chunk", "decode"]
 
 
 def test_recorder_sees_a_boolean_index():
@@ -156,12 +185,15 @@ def test_recorder_sees_a_boolean_index():
 
 @pytest.mark.parametrize("flash", [False, True], ids=["gather", "kernel"])
 @pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
-@pytest.mark.parametrize("kind", ["ragged", "chunk", "decode"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_steps_dispatch_no_host_synchronising_op(smoke, kind, kv_dtype, flash):
     cfg, params = smoke
     state = _state(cfg, params, kv_dtype)
-    step = _steps(cfg, params, state, flash)[kind]
-    step.run(*_pack_for(kind, seed=1))  # a real pack first: state to read
+    steps = _steps(cfg, params, state, flash)
+    # a real pack first: state to read (rows for the rollback to kill)
+    first = "verify" if kind == "rollback" else kind
+    steps[first].run(*_pack_for(first, seed=1))
+    step = steps[kind]
     with _Recorder() as rec:
         step.run(*_pack_for(kind, seed=2))
     assert rec.bad == []
@@ -175,7 +207,7 @@ def _leaves(state):
 
 @pytest.mark.parametrize("flash", [False, True], ids=["gather", "kernel"])
 @pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
-@pytest.mark.parametrize("kind", ["ragged", "chunk", "decode"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_all_invalid_pack_leaves_the_state_bit_identical(smoke, kind, kv_dtype,
                                                          flash):
     cfg, params = smoke
@@ -183,8 +215,11 @@ def test_all_invalid_pack_leaves_the_state_bit_identical(smoke, kind, kv_dtype,
     steps = _steps(cfg, params, state, flash)
     steps["ragged"].run(*_ragged_pack(seed=3))  # fill some pages first
     before = _leaves(state)
-    idle = (SS.idle_ragged_pack(T, B, C + 1) if kind == "ragged"
-            else SS.idle_paged_pack(B, C if kind == "chunk" else 1))
+    idle = {"ragged": lambda: SS.idle_ragged_pack(T, B, C + 1),
+            "verify": lambda: SS.idle_ragged_pack(T, B, C + 1, R),
+            "rollback": lambda: [np.zeros(B, bool), np.zeros(B, np.int32)],
+            "chunk": lambda: SS.idle_paged_pack(B, C),
+            "decode": lambda: SS.idle_paged_pack(B, 1)}[kind]()
     steps[kind].run(*idle)
     after = _leaves(state)
     assert before.keys() == after.keys()

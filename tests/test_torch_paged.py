@@ -355,14 +355,15 @@ def test_ragged_matches_two_phase(qwen):
 
 def test_two_phase_skips_the_budget_check_and_still_refuses_spec(qwen):
     """As in JAX: ``token_budget >= batch_size`` binds the ragged path
-    only; speculative decoding is not ported on either path."""
+    only, and speculative decoding needs the ragged path (``ValueError``
+    for ``spec_k`` with ``ragged=False``)."""
     te = ServeEngine(qwen.tp, qwen.tcfg, batch_size=4, token_budget=2,
                      ragged=False, device="cpu")
     assert te.ragged is False
     with pytest.raises(ValueError, match="token_budget"):
         ServeEngine(qwen.tp, qwen.tcfg, batch_size=4, token_budget=2,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="ragged path"):
         ServeEngine(qwen.tp, qwen.tcfg, ragged=False, spec_k=2, device="cpu")
 
 

@@ -149,7 +149,7 @@ def test_engine_needs_a_card_unless_asked_for_cpu(qwen):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(spec_k=2), dict(host_pages=4), dict(mesh=object()),
+    dict(host_pages=4), dict(mesh=object()),
     dict(fault_injector=object()), dict(scheduler="slo"),
     dict(scheduler="prefix-aware")], ids=lambda kw: next(iter(kw)) + (
         f"={kw['scheduler']}" if "scheduler" in kw else ""))
