@@ -105,6 +105,32 @@ Phases (every check asserts; any failure exits non-zero):
    instances must equal that count.  Printed per arm: ticks, wall ms per
    tick, tokens/s, tokens per sampled slot-tick, busy ms per tick and idle
    share (bf16), the host ms of the logits copy.
+4c. The host tier, preemption and faults at full width: qwen2-1.5b (28
+   layers, seed-0 random weights, bf16 activations) through the captured
+   ragged engine at phase 4's settings, bf16 and int8 pools.  Tier: waves
+   A (8 requests over prefix families 0-7: a 1024-token family prefix, a
+   64-token suffix, 32 output tokens), B (families 8-15, which push A's
+   prefixes out of a 600-page device pool) and A' (A's prompts again),
+   with 1024 host slots (pinned) and without: tiered transcripts equal the
+   untiered ones, wave A' hits the host tier and promotes pages; the same
+   waves again with a seeded ``FaultInjector`` (allocation failures,
+   cancels, host eviction storms, stalled ticks at 0.05 a tick each):
+   every completed transcript equals the fault-free one.  Wave A' of the
+   bf16 tiered run is repeated under the CUDA profiler (one cycle per
+   tick): busy time and idle share, the serving kernel's "mma" instances
+   equal to the engine's launches, and the movers' memcpys (from each
+   cycle's trace, by their bytes) beside one contiguous pinned copy of the
+   same bytes.  Preemption (scheduler ``slo``): 8 batch requests of 512
+   prompt and 256 output tokens fill a pool of their footprint, 4
+   priority-1 requests of 128 and 32 arrive after 8 ticks; with 128 host
+   slots (park-hit resumes) and with none (re-prefill resumes), both equal
+   to a 12-slot run with room for everyone, and (bf16) with
+   ``preempt=False``: the interactive requests' ticks to first token.
+   Every run: one trace, one graph, the pools in place, both tiers
+   drained, and the movers run under CUDA's sync debug mode at "error"
+   (a mover that waits for the card raises, as far as the mode detects).
+   Printed: wave A' wall ms and prefill tokens tiered against untiered,
+   host ms in admission, the pool's eviction scans and the movers.
 5. The kernel route against the gather route at full width in f32: after a
    prefill step, one ragged step of a mixed pack from the same state
    through each route; then, for the two-phase path, one decode tick after
@@ -144,10 +170,12 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -974,7 +1002,6 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     st = eng.stats
     assert all(s.captured == captured for s in steps), "capture state"
     assert st["graph_captures"] == (len(steps) if captured else 0), st
-    assert st["traces"] == (1 if ragged else 0), st
     # while capturing, the wrapper's own counts saw only the warm-up and the
     # capture: every one of those launches took the tensor-core variant
     assert kmod.launches_by_variant["mma"] == kmod.launches, \
@@ -1040,6 +1067,7 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     st = eng.stats
     assert all(len(results[h]) == 32 for h in handles), \
         {int(h): len(results[h]) for h in handles}
+    assert st["traces"] == (1 if ragged else 0), st
     assert st["prefix_hits"] >= 1 and st["cow_copies"] >= 1, st
     kernel_ticks = st["ragged_ticks"] if ragged else st["decode_ticks"]
     launches = st["kernel_launches"]
@@ -1138,23 +1166,34 @@ def tally_profile(prof, kname, cfg, launches, kernel_ticks, ticks, wall,
     return {"busy_ms": busy, "kernel_device_ms": k_ms}
 
 
-def tick_profiler(eng):
+# host time on each side of a profiled tick, inside its profiler window
+PROFILE_PAD_S = 0.005
+
+
+def tick_profiler(eng, on_trace_ready=None):
     """A CUDA-activity profiler with one cycle per engine tick (each tick
     waited on), wrapped around ``eng.tick``: in one long session the
     profiler now and then lost kernel records, of graph replays and of
     eager launches alike; per-tick cycles lose fewer, but not none, so a
     run that lost some raises RecordsLost and serve_profiled repeats it.
-    Each cycle costs a few hundred ms of host time; the wall time comes
-    from the unprofiled run."""
+    Each window holds ``PROFILE_PAD_S`` of idle host time before and after
+    its tick: the profiler drops a device record whose timestamp falls
+    outside its window, and a guess (not confirmed) is that lost records
+    are kernels near a window's edge whose device timestamps drifted
+    against the host clock.  Each cycle costs a few hundred ms of host
+    time; the wall time comes from the unprofiled run.  ``on_trace_ready``
+    sees each cycle."""
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA],
         schedule=torch.profiler.schedule(wait=0, warmup=0, active=1),
-        acc_events=True)
+        acc_events=True, on_trace_ready=on_trace_ready)
     tick = eng.tick
 
     def profiled_tick():
+        time.sleep(PROFILE_PAD_S)
         out = tick()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
         prof.step()
         return out
 
@@ -1268,7 +1307,7 @@ def serve_spec(params, cfg, kv_dtype, card: str, *, spec_k: int,
     steps = [eng._ragged_step] + ([eng._rollback] if spec_k else [])
     st = eng.stats
     assert all(s.captured for s in steps), "capture state"
-    assert st["graph_captures"] == len(steps) and st["traces"] == 1, st
+    assert st["graph_captures"] == len(steps), st
     sample, fetch, fetch_s = eng._sample, eng._ragged_step.fetch, [0.0]
 
     def checked_sample(req, row, ordinal):
@@ -1371,6 +1410,374 @@ def spec_phase(card: str) -> dict:
               f"tick (host), {r['spec']}")
     del params
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 4c. host tier, preemption and faults at full width (qwen2-1.5b)
+
+# phase 4's engine settings; the tier's traffic: 16 prefix families of 1024
+# tokens (64 pages), each request adding a 64-token suffix and asking for
+# 32 tokens; a device pool that cannot hold two waves' prefixes
+TIER_KW = dict(batch_size=8, cache_len=2048, page_size=16, prefill_chunk=128,
+               token_budget=256, flash_decode=True)
+TIER_PREFIX, TIER_SUFFIX, TIER_OUT = 1024, 64, 32
+TIER_MAX_PAGES, TIER_HOST_PAGES = 600, 1024
+# preemption: 8 batch requests (512 prompt, 256 output tokens) fill a pool
+# sized to their footprint; 4 interactive ones (128, 32) arrive at tick 8
+PRE_BATCH, PRE_CHAT, PRE_AT = (512, 256), (128, 32), 8
+PRE_PAGES = 8 * -(-sum(PRE_BATCH) // 16)
+PRE_HOST_PAGES = 128  # room for every park
+FAULTS = dict(seed=11, p_alloc_fail=0.05, p_cancel=0.05, p_evict_storm=0.05,
+              p_stall=0.05)
+
+
+def tier_waves(vocab: int, seed: int = 6) -> dict:
+    """Waves A (families 0-7), B (families 8-15, which pushes A's prefixes
+    out of the device pool) and A' (A's prompts again)."""
+    rng = np.random.RandomState(seed)
+    fams = [rng.randint(0, vocab, TIER_PREFIX) for _ in range(16)]
+    a = [np.concatenate([fams[i], rng.randint(0, vocab, TIER_SUFFIX)])
+         for i in range(8)]
+    b = [np.concatenate([fams[8 + i], rng.randint(0, vocab, TIER_SUFFIX)])
+         for i in range(8)]
+    return {"A": a, "B": b, "A'": a}
+
+
+def host_store_leak_free(eng) -> bool:
+    """Both tiers drained: no page referenced or parked, every device page
+    reclaimable, host slots partitioned free/resident, and the engine's
+    host bytes exactly the pool's host residency."""
+    pool = eng.pool
+    return (pool.pages_in_use == 0 and eng.reclaimable_pages == eng.n_pages
+            and pool.parked_pages == 0
+            and sorted(pool._host_free + list(pool._host_node))
+            == list(range(pool.host_pages))
+            and eng._host_slots == set(pool._host_node))
+
+
+def no_sync_movers(eng):
+    """Run the engine's page movers with CUDA's sync debug mode at "error":
+    a mover that made the host wait for the card (a pageable copy, a
+    ``.item()``) raises instead of passing."""
+    apply = eng._apply_pool_events
+
+    def checked(state):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return apply(state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    eng._apply_pool_events = checked
+
+
+def time_host(obj, name: str, acc: dict) -> None:
+    """Wrap ``obj.name`` so that its host time adds up in ``acc[name]``
+    (seconds, host clock; nothing waits for the card)."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t
+
+    setattr(obj, name, timed)
+
+
+class CopyTally:
+    """Device time and bytes of the memory copies of a profiled run, from
+    each profiler cycle's trace (its "Memcpy" events carry their bytes),
+    summed per (direction, bytes)."""
+
+    def __init__(self):
+        self.by = {}
+
+    def __call__(self, prof) -> None:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        for e in events:
+            if not e.get("name", "").startswith("Memcpy"):
+                continue
+            kind = "D2H" if "DtoH" in e["name"] else "H2D" if "HtoD" in e["name"] \
+                else "other"
+            key = (kind, int(e.get("args", {}).get("bytes", -1)))
+            n, us = self.by.get(key, (0, 0.0))
+            self.by[key] = (n + 1, us + float(e.get("dur", 0.0)))
+
+    def movers(self, sizes) -> dict:
+        """{direction: (copies, bytes, device ms)} of the copies whose size
+        is a mover's (one paged leaf of one page)."""
+        out = {}
+        for (kind, nbytes), (n, us) in self.by.items():
+            if nbytes in sizes:
+                c, b, ms = out.get(kind, (0, 0, 0.0))
+                out[kind] = (c + n, b + n * nbytes, ms + us / 1e3)
+        return out
+
+
+def serve_tiered(params, cfg, kv_dtype, card: str, *, host_pages: int,
+                 faults: bool = False, profile: bool = False) -> dict:
+    """Waves A, B, A' through the captured ragged engine (phase 4's
+    settings, ``TIER_MAX_PAGES`` device pages, ``host_pages`` host slots;
+    with ``faults`` a seeded FaultInjector).  Asserts one trace, one graph,
+    the pools in place, the movers free of host synchronisation, the host
+    store pinned, and both tiers drained.  With ``profile`` wave A' runs
+    under the CUDA profiler (one cycle per tick): busy time, the copies'
+    device time (``CopyTally``), and the serving kernel's "mma" instances,
+    which must equal the engine's launches in that wave.  Returns per-wave
+    numbers and transcripts (None for a request a fault aborted)."""
+    from repro_torch.kernels import ragged_paged_flash as rpf
+    from repro_torch.serve.chaos import FaultInjector
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, max_pages=TIER_MAX_PAGES,
+                      host_pages=host_pages, device=params.device,
+                      fault_injector=FaultInjector(**FAULTS) if faults else None,
+                      **TIER_KW)
+    ptrs = [t.data_ptr() for t in eng.pool_tensors()]  # builds the steps
+    on_card = params.device.type == "cuda"  # False when rehearsed on the CPU
+    graphs = eng.stats["graph_captures"]
+    assert graphs == int(on_card), eng.stats
+    assert all(t.is_pinned() for t in eng._host_store.values())
+    no_sync_movers(eng)
+    host = {}  # host seconds in admission, its eviction scans, the movers
+    time_host(eng, "_admit", host)
+    time_host(eng.pool, "evict_one", host)
+    time_host(eng, "_apply_pool_events", host)
+    waves = tier_waves(cfg.vocab_size)
+    out = {"waves": {}, "kernel_launches": 0}
+    for name, ps in waves.items():
+        before = eng.stats
+        host.clear()
+        prof, tally = None, None
+        if profile and name == "A'":
+            tally = CopyTally()
+            prof = tick_profiler(eng, on_trace_ready=tally)
+        torch.cuda.synchronize()
+        rpf.reset_launches()
+        t0 = time.perf_counter()
+        with prof or contextlib.nullcontext():
+            handles = [eng.submit(p, max_tokens=TIER_OUT) for p in ps]
+            eng.run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            del eng.tick  # the profiler's wrapper
+        st = eng.stats
+        d = {k: st[k] - before[k] for k in (
+            "ticks", "ragged_ticks", "packed_tokens", "host_hits",
+            "host_pages_promoted", "demotions", "promotions", "evictions",
+            "kernel_launches", "sampled_slot_ticks", "prefix_tokens_reused")}
+        emitted = sum(len(h.request.out_tokens) for h in handles)
+        w = dict(d, wall_ms=1e3 * wall, prefill_tokens=d["packed_tokens"] - emitted,
+                 host_ms={k: 1e3 * v for k, v in host.items()},
+                 transcripts=[None if h.request.error is not None
+                              else list(h.request.out_tokens) for h in handles])
+        assert d["kernel_launches"] == cfg.n_layers * d["ragged_ticks"] * on_card, d
+        if not faults:
+            assert all(len(t) == TIER_OUT for t in w["transcripts"]), name
+        if prof is not None:
+            w.update(tally_profile(prof, "ragged_paged_flash", cfg,
+                                   d["kernel_launches"], d["ragged_ticks"],
+                                   d["ticks"], wall, f"tiered wave A', {kv_dtype or 'bf16'}"))
+            w["copies"] = tally.movers({rows.numel() * rows.element_size()
+                                        for rows in eng._gather_page(
+                                            eng._state, 0).values()})
+        out["waves"][name] = w
+        out["kernel_launches"] += d["kernel_launches"]
+    st = eng.stats
+    assert st["traces"] == 1 and st["graph_captures"] == graphs, st
+    assert [t.data_ptr() for t in eng.pool_tensors()] == ptrs, "pools moved"
+    assert host_store_leak_free(eng), "pages leaked"
+    out["stats"] = st
+    return out
+
+
+def serve_preempt(params, cfg, kv_dtype, card: str, *, host_pages: int,
+                  preempt: bool = True, roomy: bool = False) -> dict:
+    """Eight batch requests fill the pool; four interactive ones (priority
+    1) arrive after ``PRE_AT`` ticks, through the captured engine under the
+    slo scheduler.  ``roomy``: twelve slots and a pool for all twelve
+    (nothing is preempted: the reference).  Returns the transcripts, the
+    interactive requests' ticks to first token, and the stats."""
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.RandomState(7)
+    batch = [rng.randint(0, cfg.vocab_size, PRE_BATCH[0]) for _ in range(8)]
+    chats = [rng.randint(0, cfg.vocab_size, PRE_CHAT[0]) for _ in range(4)]
+    kw = dict(TIER_KW, batch_size=12 if roomy else 8)
+    eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, scheduler="slo",
+                      max_pages=2 * PRE_PAGES if roomy else PRE_PAGES,
+                      host_pages=host_pages, preempt=preempt,
+                      device=params.device, **kw)
+    ptrs = [t.data_ptr() for t in eng.pool_tensors()]
+    no_sync_movers(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hb = [eng.submit(p, max_tokens=PRE_BATCH[1]) for p in batch]
+    for _ in range(PRE_AT):
+        eng.tick()
+    at = eng.stats["ticks"]
+    hi = [eng.submit(p, max_tokens=PRE_CHAT[1], priority=1) for p in chats]
+    first = {}
+    while not eng.idle:
+        eng.tick()
+        for h in hi:
+            if int(h) not in first and h.request.out_tokens:
+                first[int(h)] = eng.stats["ticks"] - at
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    assert all(len(h.request.out_tokens) == PRE_BATCH[1] for h in hb)
+    assert all(len(h.request.out_tokens) == PRE_CHAT[1] for h in hi)
+    assert st["traces"] == 1, st
+    assert st["graph_captures"] == int(params.device.type == "cuda"), st
+    assert [t.data_ptr() for t in eng.pool_tensors()] == ptrs, "pools moved"
+    assert host_store_leak_free(eng), "pages leaked"
+    return dict(wall_ms=1e3 * wall, stats=st,
+                ttft=[first[int(h)] for h in hi],
+                transcripts=[list(h.request.out_tokens) for h in hb + hi])
+
+
+def contiguous_copy_ms(nbytes: int, kind: str) -> float:
+    """The yardstick of the movers' copies: one contiguous copy of
+    ``nbytes`` between pinned host memory and the card, by CUDA events
+    (mean of 5 after a warm-up)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    src, dst = (dev, host) if kind == "D2H" else (host, dev)
+    return cuda_ms(lambda: dst.copy_(src, non_blocking=True), iters=5,
+                   warmup=1)
+
+
+def tier_phase(card: str) -> dict:
+    """Phase 4c: qwen2-1.5b FULL through the captured ragged engine with
+    the host tier, preemption and injected faults; every check asserts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    res = {"launches": 0}
+    for kv in (None, "int8"):
+        pools = kv or "bfloat16"
+        cold = serve_tiered(params, cfg, kv, card, host_pages=0)
+        warm = serve_tiered(params, cfg, kv, card, host_pages=TIER_HOST_PAGES)
+        gc.collect()
+        for name in ("A", "B", "A'"):
+            assert warm["waves"][name]["transcripts"] == \
+                cold["waves"][name]["transcripts"], \
+                f"tiered transcripts differ from untiered ({pools}, wave {name})"
+        wa, ca = warm["waves"]["A'"], cold["waves"]["A'"]
+        assert wa["host_hits"] > 0 and wa["host_pages_promoted"] > 0, wa
+        assert warm["waves"]["B"]["demotions"] > 0, warm["waves"]["B"]
+        print(f"tier, {pools} pools, on {card}: wave A' tiered {wa['wall_ms']:.3f} "
+              f"ms ({wa['ticks']} ticks, {wa['prefill_tokens']} prefill tokens, "
+              f"{wa['host_hits']} host hits, {wa['host_pages_promoted']} pages "
+              f"promoted, {wa['demotions']} demoted) vs untiered "
+              f"{ca['wall_ms']:.3f} ms ({ca['ticks']} ticks, "
+              f"{ca['prefill_tokens']} prefill tokens); waves A, B: tiered "
+              f"{warm['waves']['A']['wall_ms']:.3f}, "
+              f"{warm['waves']['B']['wall_ms']:.3f} ms, untiered "
+              f"{cold['waves']['A']['wall_ms']:.3f}, "
+              f"{cold['waves']['B']['wall_ms']:.3f} ms; pool stats "
+              f"{ {k: warm['stats'][k] for k in ('demotions', 'promotions', 'host_evictions', 'evictions')} }")
+        for arm, w in (("tiered", wa), ("untiered", ca)):
+            h = w["host_ms"]
+            print(f"  wave A' {arm}, host ms (host clock): admission "
+                  f"{h.get('_admit', 0.0):.3f}, of which the pool's eviction "
+                  f"scans {h.get('evict_one', 0.0):.3f} ({w['demotions'] + w['evictions']} "
+                  f"evictions) and the page movers {h.get('_apply_pool_events', 0.0):.3f}")
+        chaos = serve_tiered(params, cfg, kv, card, host_pages=TIER_HOST_PAGES,
+                             faults=True)
+        done = 0
+        for name, w in chaos["waves"].items():
+            for got, want in zip(w["transcripts"],
+                                 warm["waves"][name]["transcripts"]):
+                if got is not None and len(got) == TIER_OUT:
+                    assert got == want, f"chaos transcript differs ({pools}, {name})"
+                    done += 1
+        cst = chaos["stats"]
+        faults = {k: cst[k] for k in ("chaos_alloc_fails", "chaos_cancels",
+                                      "chaos_evict_storms", "chaos_stalled_ticks")}
+        assert done > 0 and sum(faults.values()) > 0, (done, faults)
+        print(f"tier with faults, {pools} pools: {done} of 24 requests completed, "
+              f"equal to the fault-free transcripts; {faults}")
+        res["launches"] += (cold["kernel_launches"] + warm["kernel_launches"]
+                            + chaos["kernel_launches"])
+        res[(kv, "A'")] = (wa, ca)
+        gc.collect()
+    # one profiled repeat of the bf16 tiered waves (wave A' profiled)
+    for attempt in range(1, 4):
+        try:
+            prof = serve_tiered(params, cfg, None, card,
+                                host_pages=TIER_HOST_PAGES, profile=True)
+            break
+        except RecordsLost as e:
+            if attempt == 3:
+                raise
+            print(f"  {e}: profiling the run again ({attempt + 1} of 3)")
+        finally:
+            gc.collect()
+    pw = prof["waves"]["A'"]
+    res["launches"] += prof["kernel_launches"]
+    wall = res[(None, "A'")][0]["wall_ms"]
+    if pw.get("busy_ms") is not None:
+        print(f"wave A' tiered, bf16, profiled repeat, on {card}: device busy "
+              f"{pw['busy_ms']:.3f} ms in {pw['ticks']} ticks = "
+              f"{pw['busy_ms'] / pw['ticks']:.3f} ms per tick; idle share "
+              f"against the unprofiled wave ({wall:.3f} ms): "
+              f"{1 - pw['busy_ms'] / wall:.3f}; kernel launches "
+              f"{pw['kernel_launches']} = profiled ragged_mma_kernel instances")
+    copies = pw.get("copies") or {}
+    if not copies:
+        print("  mover copies: not measured (no gpu_memcpy of a mover's size "
+              "in the trace)")
+    for kind, (n, nbytes, ms) in sorted(copies.items()):
+        ref = contiguous_copy_ms(nbytes, kind)
+        print(f"  mover copies {kind}, wave A' (profiler, device time): {n} "
+              f"copies, {nbytes} bytes in {ms:.3f} ms = {nbytes / ms / 1e6:.2f} "
+              f"GB/s; one contiguous pinned copy of the same bytes (CUDA "
+              f"events): {ref:.3f} ms = {nbytes / ref / 1e6:.2f} GB/s")
+    # preemption, both resume paths, beside a run with room for everyone
+    for kv in (None, "int8"):
+        pools = kv or "bfloat16"
+        ref = serve_preempt(params, cfg, kv, card, host_pages=0, roomy=True)
+        assert ref["stats"]["preemptions"] == 0, ref["stats"]
+        runs = {"park": serve_preempt(params, cfg, kv, card,
+                                      host_pages=PRE_HOST_PAGES),
+                "re-prefill": serve_preempt(params, cfg, kv, card, host_pages=0)}
+        if kv is None:
+            runs["no preemption"] = serve_preempt(params, cfg, kv, card,
+                                                  host_pages=0, preempt=False)
+        for arm, r in runs.items():
+            st = r["stats"]
+            assert r["transcripts"] == ref["transcripts"], \
+                f"preempted transcripts differ ({pools}, {arm})"
+            if arm == "park":
+                assert st["preemptions"] > 0 and st["resume_park_hits"] > 0, st
+            elif arm == "re-prefill":
+                assert st["preemptions"] > 0 and st["resume_reprefills"] > 0, st
+            print(f"preemption, {pools} pools, {arm}, on {card}: "
+                  f"{st['preemptions']} preemptions, {st['resume_park_hits']} "
+                  f"park hits, {st['resume_reprefills']} re-prefills, "
+                  f"{st['preempt_pages_parked']} pages parked; interactive "
+                  f"ticks to first token {r['ttft']} (roomy reference "
+                  f"{ref['ttft']}); {st['ticks']} ticks, {r['wall_ms']:.3f} ms")
+        gc.collect()
+    assert res["launches"] > 0
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 4c: {res['launches']} ragged_paged_flash launches (replay-"
+          f"aware counts of the tier runs) [{time.perf_counter() - t0:.1f} s]")
     return res
 
 
@@ -1816,6 +2223,8 @@ def main() -> int:
     phase_done("phase 4")
     spec_phase(card)
     phase_done("phase 4b")
+    tier_phase(card)
+    phase_done("phase 4c")
 
     cfg32 = cfg.replace(dtype="float32")
     p32 = M.init_params(cfg32, generator=torch.Generator("cuda").manual_seed(0),

@@ -4,12 +4,15 @@ ragged token-budget engine (``--engine ragged``) or the two-phase engine
 JAX launcher's flags plus ``--device`` (``cuda`` by default; ``--device
 cpu`` runs the plain PyTorch versions of the kernels).  Like the JAX
 launcher it serves the smoke config of ``--arch`` from seed-0 random
-weights.  Flags whose feature is not ported yet (``--engine reference``,
-the reordering schedulers, ``--interactive-every``) raise
-``NotImplementedError`` naming the slice.
+weights.  ``--scheduler`` picks the admission and packing policy, and
+``--interactive-every N`` submits every Nth request at priority 1 (the
+class the slo scheduler serves first and never preempts).  ``--engine
+reference`` (the lock-step engine, not ported yet) raises
+``NotImplementedError``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --engine chunked --flash-decode
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --scheduler slo --interactive-every 3
 """
 import argparse
 
@@ -55,9 +58,10 @@ def main(argv=None):
                          "per-head scales")
     ap.add_argument("--scheduler", choices=("fifo", "prefix-aware", "slo"),
                     default="fifo",
-                    help="admission/packing policy (only fifo is ported)")
+                    help="admission/packing policy")
     ap.add_argument("--interactive-every", type=int, default=0, metavar="N",
-                    help="mark every Nth request priority 1 (not ported yet)")
+                    help="mark every Nth request priority 1 (the "
+                         "interactive class the slo scheduler serves first)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     args = ap.parse_args(argv)

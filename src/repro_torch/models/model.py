@@ -245,16 +245,45 @@ def rollback_paged_slots(cfg: ModelCfg, state, mask, new_len) -> Dict:
     return state
 
 
+def paged_leaves(state):
+    """Yield (key, leaf, page axis) for every paged-pool leaf of ``state``:
+    ``kp``/``vp`` values with their page axis at ``ndim - 4`` and int8
+    ``ks``/``vs`` scale rows at ``ndim - 3`` (a leading layer axis rides
+    along).  ``key`` ("layers.<stage>.<position>.<name>") names the leaf in
+    ``gather_kv_page``'s result."""
+    for i, stage_state in enumerate(state["layers"]):
+        for j, cache in enumerate(stage_state):
+            for name in tfm.POOL_LEAVES:
+                if name in cache:
+                    leaf = cache[name]
+                    ax = leaf.ndim - (4 if name in ("kp", "vp") else 3)
+                    yield f"layers.{i}.{j}.{name}", leaf, ax
+
+
 def copy_kv_pages(cfg: ModelCfg, state, src, dst) -> Dict:
     """Copy-on-write, in place: duplicate pool pages ``src[i] -> dst[i]``
     in every layer's pools, int8 scale rows with their pages.  Sentinel
     pairs (``n_pages``) are no-ops (see ``kernels.ops.copy_pages``)."""
-    for stage_state in state["layers"]:
-        for cache in stage_state:
-            for name in ("kp", "vp"):
-                kops.copy_pages(cache[name], src, dst)
-            for name in ("ks", "vs"):
-                if name in cache:
-                    kops.copy_pages(cache[name], src, dst,
-                                    axis=cache[name].ndim - 3)
+    for _, leaf, ax in paged_leaves(state):
+        kops.copy_pages(leaf, src, dst, axis=ax)
+    return state
+
+
+def gather_kv_page(cfg: ModelCfg, state, page: int) -> Dict[str, torch.Tensor]:
+    """One pool page's rows in every paged leaf — K/V values and, for int8
+    pools, their scale rows — as {key: view} (``paged_leaves`` keys): the
+    unit the tiered pool demotes to host RAM.  Views, not copies: the
+    caller copies them out before the page is reused (the engine's demote
+    mover does so on the stream the page's next writer runs on)."""
+    return {key: leaf.select(ax, page) for key, leaf, ax in paged_leaves(state)}
+
+
+def insert_kv_page(cfg: ModelCfg, state, page_data, page: int) -> Dict:
+    """Write one demoted page's rows (``gather_kv_page``'s layout) into
+    every paged leaf at device page ``page``, in place — the promotion
+    write.  Scale rows travel with their values, so an int8 page comes back
+    bit-exact.  The copies are ``non_blocking``: from pinned host rows they
+    are queued on the current stream without waiting for the host."""
+    for key, leaf, ax in paged_leaves(state):
+        leaf.select(ax, page).copy_(page_data[key], non_blocking=True)
     return state

@@ -1,8 +1,8 @@
 """Typed serving errors — the failure vocabulary of the engine.
 
 A copy of ``repro.serve.errors`` (the port imports nothing of the JAX
-package).  ``Cancelled`` is raised by fault injection, which arrives with a
-later slice of the port; it is kept so the vocabulary stays whole.
+package).  ``Cancelled`` is what fault injection (``serve.chaos``) and
+other engine-side aborts raise.
 
 Robust serving needs failures to be part of the API, not stack traces: a
 client must be able to tell "your request can never fit" from "the engine

@@ -10,7 +10,9 @@ state's tensors in place, which is what keeps the pools at fixed addresses.
 
 ``make_spec_rollback`` builds speculative decoding's control-plane mover
 (JAX ``make_spec_rollback``), which kills the position metadata of
-rejected draft rows.
+rejected draft rows; ``make_page_gather`` / ``make_page_insert`` build the
+host tier's page movers (JAX's of the same names), which run eagerly, on
+the current stream, between the captured steps.
 
 ``CapturedStep`` is the port of JAX's one jitted program per step: it owns
 static input tensors of the step's fixed shapes and, on a CUDA device,
@@ -81,6 +83,30 @@ def make_spec_rollback(cfg: ModelCfg):
         return M.rollback_paged_slots(cfg, state, mask, new_len)
 
     return spec_rollback
+
+
+def make_page_gather(cfg: ModelCfg):
+    """Demotion mover: ``f(state, page) -> {key: rows}``, views of one pool
+    page's values and int8 scale rows in every paged leaf (see
+    ``models.model.gather_kv_page``); the engine copies them into its host
+    store.  Not captured: like JAX's, a control-plane call outside the
+    serving step."""
+    def page_gather(state, page):
+        return M.gather_kv_page(cfg, state, page)
+
+    return page_gather
+
+
+def make_page_insert(cfg: ModelCfg):
+    """Promotion mover: ``f(state, page_data, page) -> state`` writing a
+    demoted page's rows back into the pools at device page ``page``, in
+    place and without waiting for the host (see
+    ``models.model.insert_kv_page``)."""
+    @torch.no_grad()
+    def page_insert(state, page_data, page):
+        return M.insert_kv_page(cfg, state, page_data, page)
+
+    return page_insert
 
 
 def kernel_launches() -> int:

@@ -17,7 +17,7 @@ CPU (the qwen2-1.5b smoke config):
   JAX package's steps write: logits and float leaves within atol = rtol =
   1e-4 in float32, integer and int8 leaves equal;
 - a ``CapturedStep``'s static inputs keep their ``data_ptr()`` across
-  ticks, and ``stats["traces"]`` counts builds of the ragged step (1), as
+  ticks, and ``stats["traces"]`` is 1 once the ragged step has run, as
   the JAX engine counts traces.
 
 ``gpu`` tests (skipped where there is no card): captured and eager

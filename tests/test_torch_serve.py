@@ -6,8 +6,8 @@ routes (``flash_decode`` False and True on both engines), across a cold
 wave and a warm wave that hits the prefix cache mid-page (copy-on-write).
 Beside parity: pools never move (the in-place contract), no page leaks
 after completion and cancellation, the engine refuses to run without a card
-unless asked for the CPU, and features of later slices raise
-``NotImplementedError``."""
+unless asked for the CPU, and tensor parallelism (``mesh``), the feature of
+a later slice, raises ``NotImplementedError``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -148,19 +148,9 @@ def test_engine_needs_a_card_unless_asked_for_cpu(qwen):
         ServeEngine(tp, tcfg, **KW)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(host_pages=4), dict(mesh=object()),
-    dict(fault_injector=object()), dict(scheduler="slo"),
-    dict(scheduler="prefix-aware")], ids=lambda kw: next(iter(kw)) + (
-        f"={kw['scheduler']}" if "scheduler" in kw else ""))
+@pytest.mark.parametrize("kw", [dict(mesh=object())],
+                         ids=lambda kw: next(iter(kw)))
 def test_features_of_later_slices_raise(qwen, kw):
     _, tcfg, _, tp = qwen
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ServeEngine(tp, tcfg, device="cpu", **{**KW, **kw})
-
-
-def test_priority_classes_raise(qwen):
-    _, tcfg, _, tp = qwen
-    te = ServeEngine(tp, tcfg, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        te.submit(np.arange(5), priority=1)

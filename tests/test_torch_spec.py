@@ -147,8 +147,15 @@ def test_speculative_scheduler_delegates_and_validates():
             _jax().sched.SpeculativeScheduler(**bad)
         with pytest.raises(ValueError):
             tsched.SpeculativeScheduler(**bad)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tsched.SpeculativeScheduler("slo")
+    slo = tsched.SpeculativeScheduler("slo", spec_k=2)
+    assert isinstance(slo.inner, tsched.SloScheduler)
+    assert slo.name == "speculative(slo,k=2)" == _jax().sched.SpeculativeScheduler(
+        "slo", spec_k=2).name
+    R = types.SimpleNamespace
+    reqs = (R(uid=1, priority=0), R(uid=2, priority=1), R(uid=3, priority=0))
+    v = R(queue=(), slot_requests=reqs)
+    assert slo.prefill_order(v, [0, 1, 2]) == [1, 0, 2]  # interactive first
+    assert list(slo.preempt_order(v, [0, 1, 2])) == [2, 0]  # batch only
 
 
 def test_engine_validates_spec_k(qwen):
