@@ -59,6 +59,11 @@ Phases (every check asserts; any failure exits non-zero):
      scalar-load FMA for f32) printed; event and device times and TFLOP/s
      beside ``torch.matmul`` and the bound (the "hbm" policy's bytes count
      its C passes).
+   - both serving kernels at gemma3-4b's head layout (4 KV heads, 2
+     query heads each, head_dim 256: the "simt" variant), kernel 1 on the
+     mixed pack, kernel 2 on the decode tick, bf16 q over bf16 and int8
+     pools: against the plain versions (bf16 tolerances above), device
+     time beside the bound, the plain version's event time.
    - rmsnorm at the serving pack (256 x 1536) and the training
      activations (8192 x 1536), f32 and bf16, against its plain version and
      ``torch.nn.functional.rms_norm`` (f32: 1e-5; bf16: rtol 2^-7), each
@@ -131,6 +136,23 @@ Phases (every check asserts; any failure exits non-zero):
    (a mover that waits for the card raises, as far as the mode detects).
    Printed: wave A' wall ms and prefill tokens tiered against untiered,
    host ms in admission, the pool's eviction scans and the movers.
+4d. Sliding-window serving at full width: gemma3-4b (34 layers, 29 of
+   them windowed (window 1024, RoPE theta 1e4) and 5 global (theta 1e6),
+   8 query heads over 4 KV heads at head_dim 256; seed-0 random weights,
+   bf16 activations) through the ragged engine at phase 4's settings on 8
+   requests of 200-1900 prompt tokens (five longer than the window) and 32
+   output tokens, with bf16 and int8 pools, captured and eager: captured
+   transcripts equal the eager ones; the windowed gates hold (no prefix
+   cache, speculation or preemption); kernel 1 launches 5 times a tick,
+   all "simt" (replay-aware when captured); the captured bf16 run repeated
+   under the CUDA profiler, whose ragged_simt_kernel instances must equal
+   that count.  Printed per arm: wall ms per tick, tokens/s, busy ms per
+   tick and idle share (bf16 captured), peak memory, the device time of
+   each admission's slot reset.  Then the lock-step ReferenceEngine at full
+   depth (bf16) on an equal-length wave of 4 x 1200 prompt tokens (ms per
+   decode tick), and the two-phase engine at the first 12 layers (10
+   windowed, 2 global), bf16 and int8 pools: kernel 2 launched twice a
+   decode tick.
 5. The kernel route against the gather route at full width in f32: after a
    prefill step, one ragged step of a mixed pack from the same state
    through each route; then, for the two-phase path, one decode tick after
@@ -138,7 +160,11 @@ Phases (every check asserts; any failure exits non-zero):
    verify pack (every slot's decode token, then 4 draft tokens each,
    ``logit_idx`` (8, 5)) at glm4-9b's widths cut to 4 layers, after
    prefills to lens up to 2048.  Logits agree to rtol 1e-3 (atol 1e-3 x
-   max |logit|).
+   max |logit|).  Then gemma3-4b at full width in f32, cut to 12 layers:
+   an equal-length wave of 4 x 1100 prompt tokens (past the window), 16
+   tokens each, through the lock-step ReferenceEngine and the captured
+   ragged engine on both routes: equal greedy transcripts, first-step
+   logits within the same tolerance.
 6. Full-width qwen2-1.5b training (28 layers, seed-0 random weights, bf16
    activations over float32 parameters and AdamW moments, remat "full",
    use_flash=True) on the repo's train_4k shape (sequence 4096) cut to batch
@@ -511,6 +537,70 @@ def check_kernel_shapes(card: str) -> dict:
                                                  bound_ms=b_ms, bound_by=b_by)
             del args, got
         torch.cuda.empty_cache()
+    return out
+
+
+# gemma3-4b's head layout (8 query heads over 4 KV heads, head_dim 256),
+# which its 5 global layers give both serving kernels: the "simt" variant
+GEMMA3_HEADS = dict(kvH=4, G=2, hd=256)
+
+
+def check_gemma3_kernels(card: str) -> dict:
+    """Kernels 1 and 2 at gemma3-4b's head layout (``GEMMA3_HEADS``): kernel
+    1 on the mixed pack of ``check_kernel``, kernel 2 on the decode tick of
+    ``check_decode``, bf16 q over bf16 and int8 pools, each through the
+    "simt" variant, against their plain versions with ``check_kernel``'s
+    tolerances; the device time (``device_ms``) beside the bound, and the
+    plain version's CUDA-event time."""
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import ragged_paged_flash as rpf
+
+    dev = torch.device("cuda")
+    b16 = torch.bfloat16
+    out = {}
+    cases = (("ragged_paged_flash", rpf, make_pack("mixed", **GEMMA3_HEADS),
+              bound),
+             ("paged_flash_decode", pfd, make_decode_pack(**GEMMA3_HEADS),
+              decode_bound))
+    for name, mod, pack, bnd in cases:
+        for kv_dt in (b16, torch.int8):
+            args = kernel_inputs(pack, b16, kv_dt, dev)
+            *index, ks, vs = args
+            kernel = getattr(mod, name)
+            plain = getattr(mod, name + "_ref")
+            call = lambda: kernel(*index, ks=ks, vs=vs)  # noqa: E731
+            mod.reset_launches()
+            got = call()
+            torch.cuda.synchronize()
+            variant = ran(mod.launches_by_variant)
+            assert variant == "simt", (name, kv_dt, variant)
+            want = plain(*index, ks=ks, vs=vs)
+            torch.testing.assert_close(got.float(), want.float(), rtol=0.0,
+                                       atol=2e-2)
+            lens = index[-1]
+            assert bool((got[lens == 0] == 0).all()), "lens == 0 rows must be zeros"
+            rel = row_rel_err(got, want)
+            assert rel <= BF16_ROW_RTOL, (name, kv_dt, rel)
+            err = float((got.float() - want.float()).abs().max())
+            del want, got
+            dev_ms = device_ms(call, iters=50)
+            plain_ms = cuda_ms(lambda: plain(*index, ks=ks, vs=vs), iters=5,
+                               warmup=1)
+            b_ms, b_by = bnd(args)
+            share = "not measured" if dev_ms is None else f"{b_ms / dev_ms:.4f}"
+            what = "mixed pack (T=256)" if mod is rpf else "decode tick (B=8)"
+            print(f"{name} at gemma3-4b's heads (kvH 4, G 2, hd 256), {what}, "
+                  f"bf16 q, pools {kv_dt}, variant {variant}, on {card}: max "
+                  f"|err| {err:.3e}, max row |err| / |ref| {rel:.3e} (tol atol "
+                  f"2e-2, row_rtol {BF16_ROW_RTOL}); device {fmt_ms(dev_ms)}, "
+                  f"bound {b_ms:.5f} ms ({b_by}), share of bound {share} "
+                  f"(device); plain {plain_ms:.4f} ms (events); library call: "
+                  f"none")
+            out[(name, str(kv_dt))] = dict(err=err, device_ms=dev_ms,
+                                           plain_ms=plain_ms, bound_ms=b_ms,
+                                           bound_by=b_by)
+            del args, index, ks, vs
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1122,12 +1212,16 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
 
 
 def tally_profile(prof, kname, cfg, launches, kernel_ticks, ticks, wall,
-                  arm) -> dict:
+                  arm, *, instances=None, per_tick=None) -> dict:
     """A CUDA-profiled serving run's numbers: device busy time, the top
-    kernels, and the serving kernel's "mma" attention-kernel instances,
-    which must equal the engine's ``launches`` (fewer raises
-    ``RecordsLost``, more or none fails).  Returns {"busy_ms",
-    "kernel_device_ms"}, empty when the profiler recorded no device time."""
+    kernels, and the serving kernel's attention-kernel instances
+    (``instances``: the "mma" variant's kernel unless named), which must
+    equal the engine's ``launches``, ``per_tick`` (all layers unless given)
+    a kernel tick (fewer raises ``RecordsLost``, more or none fails).
+    Returns {"busy_ms", "kernel_device_ms"}, empty when the profiler
+    recorded no device time."""
+    instances = instances or MMA_KERNELS[kname]
+    per_tick = per_tick or cfg.n_layers
     by_name, count = {}, {}
     for e in prof.key_averages():
         us = _device_us(e)
@@ -1143,22 +1237,22 @@ def tally_profile(prof, kname, cfg, launches, kernel_ticks, ticks, wall,
           f"time; top kernels by device time:")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {ms:9.3f} ms  {ms / busy:.3f}  {name[:110]}")
-    mma = sum(n for name, n in count.items() if MMA_KERNELS[kname] in name)
+    mma = sum(n for name, n in count.items() if instances in name)
     if mma == 0:
         raise AssertionError(
             f"the profiler recorded {busy:.3f} ms of device time but no "
-            f"{MMA_KERNELS[kname]} instance: it does not break the {arm} "
+            f"{instances} instance: it does not break the {arm} "
             f"run down into its kernels, so the run cannot show that the "
             f"serving kernel ran")
     if mma < launches:
         raise RecordsLost(f"the profiler recorded {mma} of {launches} "
-                          f"{MMA_KERNELS[kname]} instances ({arm} arm)")
-    assert mma == launches, (f"{MMA_KERNELS[kname]} ran {mma} times, "
+                          f"{instances} instances ({arm} arm)")
+    assert mma == launches, (f"{instances} ran {mma} times, "
                              f"the engine counted {launches} launches")
     k_ms = sum(ms for name, ms in by_name.items()
                if any(k in name for k in SERVE_KERNELS[kname]))
-    print(f"  {kname}: {mma} {MMA_KERNELS[kname]} instances "
-          f"({cfg.n_layers} x {kernel_ticks} kernel ticks = {launches}); "
+    print(f"  {kname}: {mma} {instances} instances "
+          f"({per_tick} x {kernel_ticks} kernel ticks = {launches}); "
           f"device time "
           f"(profiler, all its kernels) {k_ms:.3f} ms = "
           f"{k_ms / launches:.4f} ms per launch, {k_ms / busy:.3f} of the "
@@ -1782,6 +1876,292 @@ def tier_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4d. sliding-window serving at full width (gemma3-4b) and the lock-step path
+
+# phase 4's engine settings; 8 requests of 200-1900 prompt tokens, five
+# longer than the 1024-token window, 32 output tokens each
+GEMMA_KW = dict(batch_size=8, cache_len=2048, page_size=16, prefill_chunk=128,
+                token_budget=256, flash_decode=True)
+GEMMA_LENS = (200, 1900, 1100, 450, 1500, 1300, 700, 1050)
+GEMMA_OUT = 32
+GEMMA_TWO_PHASE_REPEATS = 2  # the two-phase path's cut: 12 layers, 2 global
+# the lock-step engine's wave: equal lengths (all it serves), past the window
+LOCKSTEP_WAVE, LOCKSTEP_LEN = 4, 1200
+
+
+def global_layers(cfg) -> int:
+    """Layers of ``cfg`` without a window: the paged ones, each launching
+    the serving kernel once a kernel tick."""
+    return sum(st.repeats for st in cfg.stages for blk in st.pattern
+               if blk.attn.window is None)
+
+
+def serve_gemma(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
+                captured: bool = True, profile=None) -> dict:
+    """The gemma3 workload (``GEMMA_LENS``, ``GEMMA_OUT`` tokens each, seed
+    7) once through the ragged engine or, with ``ragged=False``, the
+    two-phase engine, captured or eager.  Asserts every request's length,
+    finite logits, the windowed gates (no prefix cache, no speculation, no
+    preemption), the pools in place, and the kernel launches: one per
+    global layer a kernel tick (replay-aware when captured; eager, the
+    wrappers' own count, all "simt").  Each admission's slot reset is
+    bracketed by CUDA events (outside any graph).  ``profile="cuda"``
+    counts the "simt" attention-kernel instances against the launches
+    (``tally_profile``)."""
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import ragged_paged_flash as rpf
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    kmod, kname, fn = ((rpf, "ragged_paged_flash", "ragged_simt_kernel")
+                       if ragged else
+                       (pfd, "paged_flash_decode", "decode_simt_kernel"))
+    eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, ragged=ragged,
+                      device=params.device, cuda_graph=captured, **GEMMA_KW)
+    assert not eng.prefix_cache and eng._spec_k == 0 and not eng.preempt
+    ptrs = [t.data_ptr() for t in eng.pool_tensors()]  # builds the steps
+    steps = ([eng._ragged_step] if ragged
+             else [eng._chunk_step, eng._decode_step])
+    assert eng.stats["graph_captures"] == (len(steps) if captured else 0)
+    sample = eng._sample
+
+    def checked_sample(req, row, ordinal):
+        assert math.isfinite(row.min()) and math.isfinite(row.max()), \
+            "non-finite logits"
+        return sample(req, row, ordinal)
+
+    eng._sample = checked_sample
+    resets = []
+    reset = M.reset_paged_slots
+
+    def timed_reset(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = reset(*a, **kw)
+        end.record()
+        resets.append((start, end))
+        return out
+
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in GEMMA_LENS]
+    prof = tick_profiler(eng) if profile == "cuda" else contextlib.nullcontext()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kmod.reset_launches()
+    M.reset_paged_slots = timed_reset
+    try:
+        with prof:
+            t0 = time.perf_counter()
+            handles = [eng.submit(p, max_tokens=GEMMA_OUT) for p in prompts]
+            results = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        M.reset_paged_slots = reset
+    st = eng.stats
+    assert all(len(results[h]) == GEMMA_OUT for h in handles), \
+        {int(h): len(results[h]) for h in handles}
+    layers = global_layers(cfg)
+    kticks = st["ragged_ticks"] if ragged else st["decode_ticks"]
+    launches = st["kernel_launches"]
+    assert launches == layers * kticks > 0, (launches, layers, kticks)
+    if captured:
+        assert kmod.launches == 0, kmod.launches
+    else:
+        assert kmod.launches == launches == kmod.launches_by_variant["simt"], \
+            (kmod.launches, launches, kmod.launches_by_variant)
+    assert [t.data_ptr() for t in eng.pool_tensors()] == ptrs, "pools moved"
+    assert eng.pool.pages_in_use == 0 and eng.reclaimable_pages == eng.n_pages
+    toks = sum(len(results[h]) for h in handles)
+    ticks = st["ticks"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reset_ms = sum(a.elapsed_time(b) for a, b in resets)
+    arm = "captured" if captured else "eager"
+    tag = f", profiled ({profile})" if profile else ""
+    kind = ("ragged" if ragged else
+            f"two-phase ({st['chunk_ticks']} prefill, {st['decode_ticks']} decode ticks)")
+    print(f"serve {cfg.name} FULL width ({cfg.n_layers} layers, {layers} "
+          f"global), {kind}, pools {kv_dtype or 'bfloat16'}, {arm}{tag}, on "
+          f"{card}: {len(handles)} requests, {toks} tokens in {wall:.3f} s = "
+          f"{toks / wall:.1f} tokens/s, {ticks} ticks, "
+          f"{1e3 * wall / ticks:.3f} ms/tick, peak memory {peak:.2f} GiB, "
+          f"kernel launches {launches} ({layers} x {kticks} kernel ticks), "
+          f"slot resets {len(resets)} in {reset_ms:.3f} ms (CUDA events), "
+          f"n_pages {eng.n_pages}")
+    out = dict(wall_ms=1e3 * wall, ticks=ticks, tokens=toks, busy_ms=None,
+               launches=launches, kernel_ticks=kticks, peak_gib=peak,
+               reset_ms=reset_ms, resets=len(resets),
+               transcripts=[list(results[h]) for h in handles])
+    if profile == "cuda":
+        out.update(tally_profile(prof, kname, cfg, launches, kticks, ticks,
+                                 wall, arm, instances=fn, per_tick=layers))
+    return out
+
+
+def lockstep_run(params, cfg, card: str, prompts, max_tokens: int, *,
+                 first_logits: bool = False) -> dict:
+    """One wave through the lock-step ``ReferenceEngine`` (batch = the
+    wave, cache_len 2048), each decode tick bracketed by CUDA events;
+    ``first_logits`` keeps the first tick's float32 logits (B, V) on the
+    host (that tick waits for the card)."""
+    from repro_torch.serve.reference import ReferenceEngine
+
+    eng = ReferenceEngine(params, cfg, batch_size=len(prompts),
+                          cache_len=GEMMA_KW["cache_len"], device=params.device)
+    spans, first = [], []
+    decode = eng._decode
+
+    def timed(p, s, t):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        logits, s = decode(p, s, t)
+        end.record()
+        spans.append((start, end))
+        if first_logits and not first:
+            first.append(logits[:, -1].float().cpu())
+        return logits, s
+
+    eng._decode = timed
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert all(len(results[u]) == max_tokens for u in uids)
+    tick_ms = sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+    print(f"ReferenceEngine (lock-step) {cfg.name} ({cfg.n_layers} layers, "
+          f"{cfg.dtype}) on {card}: {len(prompts)} x {len(prompts[0])} prompt "
+          f"tokens, {max_tokens} out, {len(spans)} decode ticks at "
+          f"{tick_ms:.3f} ms each (CUDA events around the eager step), "
+          f"{wall:.3f} s in all (batch-1 prefills included), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(transcripts=[list(results[u]) for u in uids], tick_ms=tick_ms,
+                wall_ms=1e3 * wall, first=first[0] if first else None)
+
+
+def gemma_phase(card: str) -> dict:
+    """Phase 4d: gemma3-4b FULL (34 layers: 29 windowed, 5 global; seed-0
+    random weights, bf16 activations) through the ragged engine, captured
+    and eager, with bf16 and int8 pools (captured transcripts must equal
+    eager ones), the captured bf16 run repeated under the CUDA profiler
+    (busy time, idle share, "simt" instances = 5 x ticks); the lock-step
+    ReferenceEngine at full depth on an equal-length wave; then the
+    two-phase engine at the first 12 layers (10 windowed, 2 global), bf16
+    and int8 pools, kernel 2 launched twice a decode tick."""
+    from repro_torch.configs import Stage, get_config, param_count
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-4b")
+    assert global_layers(cfg) == 5 and cfg.n_layers == 34
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    print(f"gemma3-4b FULL: {param_count(cfg) / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    res = {}
+    for kv in (None, "int8"):
+        cap = serve_gemma(params, cfg, kv, card)
+        eager = serve_gemma(params, cfg, kv, card, captured=False)
+        gc.collect()
+        assert cap["transcripts"] == eager["transcripts"], \
+            f"captured and eager transcripts differ ({kv or 'bfloat16'})"
+        res[kv] = {"captured": cap, "eager": eager}
+    prof = serve_profiled(params, cfg, None, card, run=serve_gemma)
+    res[None]["captured"]["busy_ms"] = prof.get("busy_ms")
+    for kv, arms in res.items():
+        for arm, r in arms.items():
+            wall_tick = r["wall_ms"] / r["ticks"]
+            busy = ("not measured" if r["busy_ms"] is None else
+                    f"{r['busy_ms'] / r['ticks']:.3f} ms")
+            idle = ("not measured" if r["busy_ms"] is None else
+                    f"{1 - r['busy_ms'] / r['ticks'] / wall_tick:.3f}")
+            print(f"gemma3-4b ragged, {kv or 'bfloat16'} pools, {arm} on {card}: "
+                  f"{wall_tick:.3f} ms per tick, "
+                  f"{r['tokens'] / r['wall_ms'] * 1e3:.1f} tokens/s, device busy "
+                  f"{busy} per tick (profiled repeat), idle share {idle}, peak "
+                  f"memory {r['peak_gib']:.2f} GiB, {r['resets']} slot resets "
+                  f"{r['reset_ms']:.3f} ms")
+    rng = np.random.RandomState(8)
+    wave = [rng.randint(0, cfg.vocab_size, LOCKSTEP_LEN)
+            for _ in range(LOCKSTEP_WAVE)]
+    ref = lockstep_run(params, cfg, card, wave, GEMMA_OUT)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = cfg.replace(stages=(Stage(cfg.stages[0].pattern,
+                                    GEMMA_TWO_PHASE_REPEATS),))
+    assert cut.n_layers == 12 and global_layers(cut) == 2
+    p12 = M.init_params(cut, generator=torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    two = {kv: serve_gemma(p12, cut, kv, card, ragged=False)
+           for kv in (None, "int8")}
+    for r in two.values():
+        assert r["launches"] == 2 * r["kernel_ticks"], r["launches"]
+    del p12
+    torch.cuda.empty_cache()
+    print(f"phase 4d: ragged_paged_flash {res[None]['captured']['launches']} "
+          f"launches (5 x {res[None]['captured']['kernel_ticks']} ticks), "
+          f"paged_flash_decode {two[None]['launches']} (2 x "
+          f"{two[None]['kernel_ticks']} decode ticks), lock-step "
+          f"{ref['tick_ms']:.3f} ms a tick [{time.perf_counter() - t0:.1f} s]")
+    return {"ragged": res, "two_phase": two, "lockstep": ref}
+
+
+def lockstep_vs_ragged(card: str) -> None:
+    """Phase 5's lock-step check: gemma3-4b at full width in float32, cut
+    to 12 layers (10 windowed, 2 global), an equal-length wave of 4 x 1100
+    prompt tokens (past the 1024 window), 16 tokens each, through the
+    lock-step ReferenceEngine and the captured ragged engine on the kernel
+    and the gather routes: greedy transcripts equal, and each request's
+    first-step logits within rtol 1e-3, atol 1e-3 x max |logit| of the
+    lock-step engine's."""
+    from repro_torch.configs import Stage, get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    gem = get_config("gemma3-4b")
+    g32 = gem.replace(dtype="float32", stages=(Stage(gem.stages[0].pattern, 2),))
+    p32 = M.init_params(g32, generator=torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    rng = np.random.RandomState(9)
+    wave = [rng.randint(0, g32.vocab_size, 1100) for _ in range(4)]
+    ref = lockstep_run(p32, g32, card, wave, 16, first_logits=True)
+    scale = float(ref["first"].abs().max())
+    for flash in (True, False):
+        eng = ServeEngine(p32, g32, device="cuda",
+                          **{**GEMMA_KW, "flash_decode": flash})
+        first = {}
+        sample = eng._sample
+
+        def recording(req, row, ordinal, sample=sample, first=first):
+            if ordinal == 0:
+                first[req.uid] = torch.from_numpy(row.copy())
+            return sample(req, row, ordinal)
+
+        eng._sample = recording
+        uids = [eng.submit(p, max_tokens=16) for p in wave]
+        results = eng.run()
+        route = "kernel" if flash else "gather"
+        assert [results[u] for u in uids] == ref["transcripts"], \
+            f"lock-step and ragged ({route}) transcripts differ"
+        got = torch.stack([first[u] for u in uids])
+        torch.testing.assert_close(got, ref["first"], rtol=1e-3,
+                                   atol=1e-3 * scale)
+        print(f"lock-step vs ragged engine ({route} route), gemma3-4b widths "
+              f"f32 (12 layers), 4 x 1100 prompt tokens on {card}: transcripts "
+              f"equal ({sum(len(results[u]) for u in uids)} tokens), "
+              f"first-step logits max |diff| "
+              f"{float((got - ref['first']).abs().max()):.3e} (max |logit| "
+              f"{scale:.2f}), kernel launches {eng.stats['kernel_launches']}")
+        del eng
+        gc.collect()
+    del p32
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # 5. kernel route against gather route
 
 
@@ -2196,6 +2576,7 @@ def main() -> int:
     mres = check_matmul(card)
     nres = check_rmsnorm(card)
     norm_launches = rmsnorm_route(card)
+    check_gemma3_kernels(card)
     phase_done("phase 3")
 
     cfg = get_config("qwen2-1.5b")  # FULL, bf16 activations
@@ -2225,6 +2606,8 @@ def main() -> int:
     phase_done("phase 4b")
     tier_phase(card)
     phase_done("phase 4c")
+    gemma_phase(card)
+    phase_done("phase 4d")
 
     cfg32 = cfg.replace(dtype="float32")
     p32 = M.init_params(cfg32, generator=torch.Generator("cuda").manual_seed(0),
@@ -2259,6 +2642,7 @@ def main() -> int:
           f"(max |logit| {scale:.2f})")
     del p32
     torch.cuda.empty_cache()
+    lockstep_vs_ragged(card)
     phase_done("phase 5")
 
     tres = train_full(card)

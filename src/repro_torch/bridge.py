@@ -14,9 +14,12 @@ and hand them here, so this module never sees JAX.
 - ``params_to_numpy`` / ``grads_to_numpy`` lay a ``Model``'s parameters,
   or a list of tensors in ``Model.parameters()`` order (gradients, AdamW
   moments), out like the JAX pytree, so tests compare leaf by leaf.
-- ``state_from_numpy`` / ``state_to_numpy`` convert the paged decode state
-  ({"layers": [[{kp, vp, [ks, vs], ptab, kpos, slen}]]}) both ways, with
-  the same layer-axis rule, leaf dtypes unchanged.
+- ``state_from_numpy`` / ``state_to_numpy`` convert a decode state both
+  ways, with the same layer-axis rule, leaf dtypes unchanged: the paged
+  serving state ({"layers": [[{kp, vp, [ks, vs], ptab, kpos, slen} or,
+  for a windowed layer, {k, v, kpos, slen}]]}) and the lock-step state
+  ({"layers": [[{k, v, k_pos, pos}]], "pos"}), whose top-level "pos" is a
+  0-d scalar on both sides.
 """
 from __future__ import annotations
 
@@ -93,17 +96,25 @@ def params_to_numpy(params: M.Model, cfg: ModelCfg) -> Dict:
 
 
 def state_from_numpy(tree: Dict, cfg: ModelCfg, device) -> Dict:
-    """The port's paged decode state from a numpy JAX state pytree."""
+    """The port's decode state (paged or lock-step) from a numpy JAX state
+    pytree."""
     layers = []
     for st, ss in zip(cfg.stages, tree["layers"]):
         layers.append([{k: _tensor(np.asarray(v) if st.repeats > 1
                                    else np.asarray(v)[None], device=device)
                         for k, v in cache.items()} for cache in ss])
-    return {"layers": layers}
+    out = {"layers": layers}
+    if "pos" in tree:
+        out["pos"] = _tensor(tree["pos"], device=device)
+    return out
 
 
 def state_to_numpy(state: Dict, cfg: ModelCfg) -> Dict:
     """A numpy pytree laid out like the JAX state (bf16 leaves as float32)."""
-    return {"layers": [[{k: _numpy(v) if st.repeats > 1 else _numpy(v)[0]
-                         for k, v in cache.items()} for cache in ss]
-                       for st, ss in zip(cfg.stages, state["layers"])]}
+    out = {"layers": [[{k: _numpy(v) if st.repeats > 1
+                        else np.asarray(_numpy(v)[0])
+                        for k, v in cache.items()} for cache in ss]
+                      for st, ss in zip(cfg.stages, state["layers"])]}
+    if "pos" in state:
+        out["pos"] = _numpy(state["pos"])
+    return out

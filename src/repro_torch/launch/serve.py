@@ -7,10 +7,11 @@ launcher it serves the smoke config of ``--arch`` from seed-0 random
 weights.  ``--scheduler`` picks the admission and packing policy, and
 ``--interactive-every N`` submits every Nth request at priority 1 (the
 class the slo scheduler serves first and never preempts).  ``--engine
-reference`` (the lock-step engine, not ported yet) raises
-``NotImplementedError``.
+reference`` runs the lock-step ``ReferenceEngine`` (greedy, no sampling
+flags, no priorities, no stats line), the A/B baseline of the other two.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --engine reference --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --engine chunked --flash-decode
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --scheduler slo --interactive-every 3
 """
@@ -23,6 +24,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCH_NAMES, get_config, skip_reason
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.reference import ReferenceEngine
 
 
 def main(argv=None):
@@ -66,10 +68,6 @@ def main(argv=None):
                     help="torch device to serve on (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.engine == "reference":
-        raise NotImplementedError(
-            "--engine reference is not ported yet: the lock-step "
-            "ReferenceEngine waits in ROADMAP.md, Queue 1")
     if skip_reason(args.arch, "decode_32k"):
         raise SystemExit(f"{args.arch}: {skip_reason(args.arch, 'decode_32k')}")
     device = resolve_device(args.device)
@@ -77,23 +75,28 @@ def main(argv=None):
     params = M.init_params(cfg, generator=torch.Generator(device).manual_seed(0),
                            device=device)
     cache_len = max(128, args.prompt_len + args.max_tokens)
-    engine = ServeEngine(params, cfg, batch_size=args.batch_size,
-                         cache_len=cache_len, page_size=args.page_size,
-                         max_pages=args.max_pages,
-                         prefill_chunk=args.prefill_chunk,
-                         token_budget=args.token_budget,
-                         ragged=args.engine == "ragged",
-                         flash_decode=args.flash_decode,
-                         prefix_cache=not args.no_prefix_cache,
-                         kv_dtype=args.kv_dtype, scheduler=args.scheduler,
-                         device=device)
+    reference = args.engine == "reference"
+    if reference:
+        engine = ReferenceEngine(params, cfg, batch_size=args.batch_size,
+                                 cache_len=cache_len, device=device)
+    else:
+        engine = ServeEngine(params, cfg, batch_size=args.batch_size,
+                             cache_len=cache_len, page_size=args.page_size,
+                             max_pages=args.max_pages,
+                             prefill_chunk=args.prefill_chunk,
+                             token_budget=args.token_budget,
+                             ragged=args.engine == "ragged",
+                             flash_decode=args.flash_decode,
+                             prefix_cache=not args.no_prefix_cache,
+                             kv_dtype=args.kv_dtype, scheduler=args.scheduler,
+                             device=device)
     rng = np.random.RandomState(0)
     sample_kw = {}
-    if args.temperature > 0:
+    if not reference and args.temperature > 0:
         sample_kw = dict(temperature=args.temperature, top_k=args.top_k)
 
     def _priority(i):
-        if not args.interactive_every:
+        if reference or not args.interactive_every:
             return {}
         return {"priority": int((i + 1) % args.interactive_every == 0)}
 
@@ -106,7 +109,8 @@ def main(argv=None):
     results = engine.run()
     for uid in uids:
         print(f"req {uid:3d}: {results[uid]}")
-    print(f"stats: {engine.stats}")
+    if not reference:
+        print(f"stats: {engine.stats}")
     return 0
 
 

@@ -1,9 +1,9 @@
 """Attention: GQA with RoPE over a paged KV pool for the two serving steps
-(the ragged pack and the two-phase (B, C) step), and full-sequence causal
-attention for training.
+(the ragged pack and the two-phase (B, C) step), full-sequence causal
+attention for training and prefill, and the lock-step decode cache.
 
-Counterpart of the paged, ragged and full-sequence parts of
-``repro.models.layers.attention``.  Layouts follow the JAX package: q is
+Counterpart of ``repro.models.layers.attention`` (all but cross-attention
+and the multi-device decode).  Layouts follow the JAX package: q is
 grouped (.., kvH, G, hd) with G = num_heads // num_kv_heads, weights are
 stored grouped — wq (D,kvH,G,hd), wo (kvH,G,hd,D) — and the pool is
 kp/vp (n_pages, page, kvH, hd) with a block table ptab (B, pps), per-slot
@@ -23,9 +23,15 @@ Differences from JAX, on purpose:
 - Serving weights are cast to the activation dtype once at load, not at
   each use; training weights stay in the parameter dtype and are cast at
   each use, as in JAX.
+- The ragged step's windowed layers score each token against every slot's
+  circular buffer and mask out the other slots (``_ragged_window_attn``),
+  where JAX gathers a (T, cap) copy of each token's slot buffer: the same
+  function, without the per-token copy.
 
-Windowed (circular-buffer) layers and cross-attention are not in this
-slice and raise ``NotImplementedError``.
+Windowed layers (``cfg.window``) keep per-slot circular buffers of
+``min(window, cache_len) + window_extra`` entries in the serving state, and
+a shared circular buffer of ``min(window, max_len)`` entries in the
+lock-step cache.  Cross-attention raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,10 +49,6 @@ def check_attn(cfg: AttnCfg) -> None:
     if cfg.cross:
         raise NotImplementedError(
             "cross-attention (vision frontend) is not ported yet: it comes "
-            "with the hybrid-mixer slice")
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "windowed circular-buffer attention is not ported yet: it comes "
             "with the hybrid-mixer slice")
 
 
@@ -90,17 +92,34 @@ def kv_cache_dtype(kv_dtype, act_dtype) -> torch.dtype:
 
 
 def init_paged_cache(cfg: AttnCfg, batch: int, cache_len: int, dtype, *,
-                     page_size: int, n_pages: int, kv_dtype=None,
-                     layers: int = 1, device=None):
-    """Paged cache of a global-attention layer, stacked over ``layers``
-    (a stage's repeats): every leaf has a leading layer axis.  ``kv_dtype``
-    (None | "float32" | "bfloat16" | "int8") sets the pool's storage dtype;
-    int8 pools add float32 scale pools ``ks``/``vs``."""
+                     page_size: int, n_pages: int, window_extra: int = 0,
+                     kv_dtype=None, layers: int = 1, device=None):
+    """Serving cache of one attention layer, stacked over ``layers`` (a
+    stage's repeats): every leaf has a leading layer axis.
+
+    A global layer gets a paged cache; ``kv_dtype`` (None | "float32" |
+    "bfloat16" | "int8") sets the pool's storage dtype, and int8 pools add
+    float32 scale pools ``ks``/``vs``.  A windowed layer gets per-slot
+    circular buffers k/v (B, cap, kvH, hd) with ``cap = min(window,
+    cache_len) + window_extra`` and per-slot ``kpos``/``slen``: a C-token
+    chunk evicts the C oldest entries, so chunked prefill needs
+    ``window_extra`` of at least C - 1 (the engine passes C).  The buffers
+    stay in the activation dtype whatever ``kv_dtype`` is, as in JAX: int8
+    quantizes the global layers only."""
     check_attn(cfg)
     kvH, hd = cfg.num_kv_heads, cfg.head_dim
+    L = (layers,)
+    if cfg.window is not None:
+        cap = min(cfg.window, cache_len) + window_extra
+        return {
+            "k": torch.zeros(L + (batch, cap, kvH, hd), dtype=dtype, device=device),
+            "v": torch.zeros(L + (batch, cap, kvH, hd), dtype=dtype, device=device),
+            "kpos": torch.full(L + (batch, cap), -1, dtype=torch.int32,
+                               device=device),
+            "slen": torch.zeros(L + (batch,), dtype=torch.int32, device=device),
+        }
     kvd = kv_cache_dtype(kv_dtype, dtype)
     pps = -(-cache_len // page_size)
-    L = (layers,)
     cache = {
         "kp": torch.zeros(L + (n_pages, page_size, kvH, hd), dtype=kvd, device=device),
         "vp": torch.zeros(L + (n_pages, page_size, kvH, hd), dtype=kvd, device=device),
@@ -225,19 +244,51 @@ def _gather_paged_kv(cache, dtype):
     return k.to(dtype), v.to(dtype)
 
 
+def _write_window(cache, rows, q_pos, valid, k_new, v_new):
+    """Write the valid tokens' K/V into a windowed layer's per-slot circular
+    buffers, in place (JAX ``paged_attention_step``/``ragged_attention_step``,
+    windowed branch).  A slot's tokens of one step are consecutive
+    positions; when there are more than ``cap`` of them the buffer wraps
+    within the write, so only each slot's last ``cap`` are kept (duplicate
+    targets would race).  ``rows``/``q_pos``/``valid`` share one shape;
+    ``rows`` are the tokens' slots.  Returns (the kept-token mask, their
+    buffer index with the sentinel ``cap`` for the rest)."""
+    B, cap = cache["kpos"].shape
+    qp = q_pos.long()
+    row_max = torch.full((B,), -1, dtype=torch.long, device=qp.device)
+    row_max.scatter_reduce_(0, rows.reshape(-1),
+                            torch.where(valid, qp, -1).reshape(-1), "amax",
+                            include_self=True)
+    keep = valid & (qp > row_max[rows] - cap)
+    idx = torch.where(keep, torch.remainder(qp, cap), cap)
+    kops.scatter_live([(cache["k"], k_new), (cache["v"], v_new)],
+                      (rows, idx.clamp(0, cap - 1)), keep)
+    return keep, idx
+
+
+def _update_slen(slen, rows, q_pos, valid):
+    """``slen[row] = max(slen[row], q_pos + 1)`` over the valid tokens, in
+    place (duplicate rows take the max)."""
+    slen.scatter_reduce_(
+        0, rows.reshape(-1),
+        torch.where(valid, q_pos + 1, 0).reshape(-1).to(slen.dtype), "amax",
+        include_self=True)
+
+
 def paged_attention_step(params, cfg: AttnCfg, x, cache, q_pos, valid, *,
                          flash_decode: bool = False):
-    """One step of the two-phase serving path against the paged cache:
-    writes the C incoming tokens of each slot, then attends over everything
-    written so far.
+    """One step of the two-phase serving path against the layer's serving
+    cache: writes the C incoming tokens of each slot, then attends over
+    everything written so far.
 
     x: (B, C, D) — C == 1 is a decode tick, C > 1 a prefill chunk; q_pos:
     (B, C) absolute positions (per slot); valid: (B, C) marks real tokens
     (invalid rows and tails write nothing and their outputs are ignored by
-    the engine).  A decode tick with ``flash_decode`` goes through the
-    paged flash-decode kernel (``kernels.ops.paged_flash_decode``) over
-    every slot's ``slen``; every other step, prefill chunks included,
-    gathers the slots' block-table context, as in JAX.  Returns (out
+    the engine).  A global layer's decode tick with ``flash_decode`` goes
+    through the paged flash-decode kernel (``kernels.ops.paged_flash_decode``)
+    over every slot's ``slen``; every other step, prefill chunks included,
+    gathers the slots' block-table context, as in JAX.  A windowed layer
+    writes into its circular buffers and attends over them.  Returns (out
     (B, C, D), cache) with the cache updated in place."""
     check_attn(cfg)
     B, C, _ = x.shape
@@ -246,6 +297,15 @@ def paged_attention_step(params, cfg: AttnCfg, x, cache, q_pos, valid, *,
     if cfg.rope_theta is not None:
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k_new = apply_rope(k_new, q_pos, cfg.rope_theta)
+
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
+    if "kp" not in cache:  # windowed: per-slot circular buffers
+        keep, idx = _write_window(cache, rows, q_pos, valid, k_new, v_new)
+        _write_kpos(cache["kpos"], rows, idx, q_pos, keep)
+        _update_slen(cache["slen"], rows, q_pos, valid)
+        o = _paged_masked_attn(q, cache["k"], cache["v"], cache["kpos"],
+                               q_pos, cfg.window)
+        return _out_proj_replicated(params, cfg, o), cache
 
     qp = q_pos.long()
     P = cache["kp"].shape[1]
@@ -257,11 +317,8 @@ def paged_attention_step(params, cfg: AttnCfg, x, cache, q_pos, valid, *,
     off = torch.remainder(qp, P)
     _scatter_paged_kv(cache, k_new, v_new, page, off)
     T = pps * P
-    rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
     _write_kpos(cache["kpos"], rows, qp, q_pos, valid)
-    cache["slen"].copy_(torch.maximum(
-        cache["slen"],
-        torch.where(valid, q_pos + 1, 0).amax(dim=1).to(cache["slen"].dtype)))
+    _update_slen(cache["slen"], rows, q_pos, valid)
 
     if flash_decode and C == 1:
         o = kops.paged_flash_decode(q[:, 0].contiguous(), cache["kp"],
@@ -276,16 +333,44 @@ def paged_attention_step(params, cfg: AttnCfg, x, cache, q_pos, valid, *,
     return _out_proj_replicated(params, cfg, o), cache
 
 
+def _ragged_window_attn(q, k, v, kpos, slot, q_pos, window):
+    """Ragged-pack attention over per-slot circular buffers: q (T,kvH,G,hd)
+    against k/v (B,cap,kvH,hd) with kpos (B,cap) -> (T,kvH,G,hd).  Each
+    token scores against every slot's buffer and keeps only its own slot's
+    live, causal, in-window entries: JAX's ``_paged_masked_attn`` over a
+    gathered (T, cap) copy of each token's slot buffer, without the copy
+    (masked entries weigh exactly 0).  A token with no visible entry gets
+    zeros, as in JAX."""
+    T = q.shape[0]
+    B, cap, kvH, hd = k.shape
+    s = torch.einsum("tkgd,nkd->tkgn", q, k.reshape(B * cap, kvH, hd))
+    s = s.float() * hd ** -0.5  # (T,kvH,G,B*cap)
+    qp = q_pos.long()[:, None, None]
+    kp = kpos.long()[None]
+    ok = ((slot.long()[:, None, None]
+           == torch.arange(B, device=q.device)[None, :, None])
+          & (kp >= 0) & (kp <= qp))
+    if window is not None:
+        ok &= (qp - kp) < window
+    ok = ok.reshape(T, 1, 1, B * cap)
+    p = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1).to(q.dtype)
+    p = torch.where(ok, p, 0.0)
+    return torch.einsum("tkgn,nkd->tkgd", p, v.reshape(B * cap, kvH, hd))
+
+
 def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,
                           *, flash_decode: bool = False):
     """One ragged serving step: a flat pack of T tokens from any slots.
 
     x: (1, T, D) hidden pack; slot/q_pos/valid: (T,) per-token slot index,
-    absolute position and validity.  Writes the pack's K/V into the pool,
-    then attends: with ``flash_decode`` through the ragged paged kernel
-    (``kernels.ops.ragged_paged_flash``), otherwise through a gather of
-    every token's slot context.  Returns (out (1, T, D), cache) with the
-    cache updated in place."""
+    absolute position and validity.  A global layer writes the pack's K/V
+    into the pool, then attends: with ``flash_decode`` through the ragged
+    paged kernel (``kernels.ops.ragged_paged_flash``), otherwise through a
+    gather of every token's slot context.  A windowed layer writes into its
+    per-slot circular buffers and attends over them
+    (``_ragged_window_attn``) on either route, as JAX computes it outside
+    its kernel.  Returns (out (1, T, D), cache) with the cache updated in
+    place."""
     check_attn(cfg)
     q = _project_q(params, cfg, x)[0]  # (T,kvH,G,hd)
     k_new, v_new = (t[0] for t in _project_kv(params, cfg, x))  # (T,kvH,hd)
@@ -295,6 +380,14 @@ def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,
 
     sl, qp = slot.long(), q_pos.long()
     B = cache["slen"].shape[0]
+    if "kp" not in cache:  # windowed: per-slot circular buffers
+        keep, idx = _write_window(cache, sl, q_pos, valid, k_new, v_new)
+        _write_kpos(cache["kpos"], sl, idx, q_pos, keep)
+        _update_slen(cache["slen"], sl, q_pos, valid)
+        o = _ragged_window_attn(q, cache["k"], cache["v"], cache["kpos"], slot,
+                                q_pos, cfg.window)
+        return _out_proj_replicated(params, cfg, o[None]), cache
+
     P = cache["kp"].shape[1]
     n_pages = cache["kp"].shape[0]
     pps = cache["ptab"].shape[-1]
@@ -305,9 +398,7 @@ def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,
     _scatter_paged_kv(cache, k_new, v_new, page, off)
     Tc = pps * P
     _write_kpos(cache["kpos"], sl, qp, q_pos, valid)
-    cache["slen"].scatter_reduce_(
-        0, sl, torch.where(valid, q_pos + 1, 0).to(cache["slen"].dtype),
-        "amax", include_self=True)
+    _update_slen(cache["slen"], sl, q_pos, valid)
 
     if flash_decode:
         lens = torch.where(valid, q_pos + 1, 0).to(torch.int32)
@@ -323,3 +414,83 @@ def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,
     o = _paged_masked_attn(q[:, None], k_tok, v_tok, cache["kpos"][sl],
                            q_pos[:, None], cfg.window)  # (T,1,kvH,G,hd)
     return _out_proj_replicated(params, cfg, o.transpose(0, 1)), cache
+
+
+# ---------------------------------------------------------------------------
+# Lock-step decode (the reference engine's cache: one position for the whole
+# batch)
+
+
+def init_cache(cfg: AttnCfg, batch: int, max_len: int, dtype, *,
+               layers: int = 1, device=None):
+    """Lock-step decode cache of one attention layer, stacked over
+    ``layers``: k/v (B, cap, kvH, hd) with ``cap = min(window, max_len)``
+    (a circular buffer for windowed layers), the SHARED absolute position
+    of each buffer entry ``k_pos`` (cap,) (-1 = never written) and the
+    next position ``pos``, a scalar per layer."""
+    check_attn(cfg)
+    cap = max_len if cfg.window is None else min(cfg.window, max_len)
+    L = (layers,)
+    kvH, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros(L + (batch, cap, kvH, hd), dtype=dtype, device=device),
+        "v": torch.zeros(L + (batch, cap, kvH, hd), dtype=dtype, device=device),
+        "k_pos": torch.full(L + (cap,), -1, dtype=torch.int32, device=device),
+        "pos": torch.zeros(L, dtype=torch.int32, device=device),
+    }
+
+
+def prefill_cache(params, cfg: AttnCfg, cache, x, positions):
+    """Write a whole prompt x (B, S, D) at ``positions`` (S,) into one
+    layer's lock-step cache (views of that layer), in place.  When S >= cap
+    (a windowed layer) only the last ``cap`` positions are kept, each at
+    ``position % cap`` of a zeroed buffer; otherwise the prompt lands at
+    entries [0, S).  ``pos`` becomes S."""
+    k, v = _project_kv(params, cfg, x)
+    if cfg.rope_theta is not None:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    S = x.shape[1]
+    cap = cache["k"].shape[1]
+    if S >= cap:
+        kp = positions[-cap:]
+        slots = torch.remainder(kp, cap).long()
+        for name, new in (("k", k[:, -cap:]), ("v", v[:, -cap:])):
+            cache[name].zero_()
+            cache[name].index_copy_(1, slots, new.to(cache[name].dtype))
+        cache["k_pos"].fill_(-1)
+        cache["k_pos"].index_copy_(0, slots, kp.to(cache["k_pos"].dtype))
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+        cache["k_pos"][:S] = positions
+    cache["pos"].fill_(S)
+    return cache
+
+
+def attention_decode(params, cfg: AttnCfg, x, cache, *, sp_decode: bool = False):
+    """One lock-step decode token for the whole batch: x (B, 1, D) at the
+    layer's ``pos``.  Writes its K/V at entry ``pos % cap`` and that entry's
+    ``k_pos``, advances ``pos`` (all in place, with tensor indices), then
+    attends over the buffer with the causal and window mask.  Returns (out
+    (B, 1, D), cache).  ``sp_decode`` (sequence-sharded decode over a mesh)
+    raises ``NotImplementedError``."""
+    check_attn(cfg)
+    if sp_decode:
+        raise NotImplementedError(
+            "sequence-parallel decode (sp_decode) is not ported yet: it comes "
+            "with multi-GPU serving (ROADMAP.md, Queue 1 item 7)")
+    pos = cache["pos"].reshape(1).clone()  # this token's position
+    q = _project_q(params, cfg, x)  # (B,1,kvH,G,hd)
+    k_new, v_new = _project_kv(params, cfg, x)  # (B,1,kvH,hd)
+    if cfg.rope_theta is not None:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    cap = cache["k"].shape[1]
+    slot = torch.remainder(pos, cap).long()
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    cache["k_pos"].index_copy_(0, slot, pos.to(cache["k_pos"].dtype))
+    cache["pos"].add_(1)
+    bias = _mask_bias(pos, cache["k_pos"], True, cfg.window)
+    o = _softmax_attn(q, cache["k"], cache["v"], bias)
+    return _out_proj(params, cfg, o), cache

@@ -1,5 +1,7 @@
 """Model entry points: init, forward and loss (training), paged state, the
-ragged and two-phase steps and their control-plane companions (serving).
+ragged and two-phase steps and their control-plane companions (serving),
+and the lock-step decode state, prefill and decode step (the reference
+engine).
 
 Counterpart of ``repro.models.model``.  Parameters live in a ``Model``
 ``nn.Module`` whose parameter names follow the JAX pytree paths
@@ -14,13 +16,14 @@ layouts:
 - training (``for_training=True``): every leaf in ``cfg.param_dtype``, as
   JAX stores it, with ``requires_grad``; the layers cast at use.
 
-The decode state is a plain pytree of tensors ({"layers": [[cache per
+The serving state is a plain pytree of tensors ({"layers": [[cache per
 pattern position] per stage]}) that every serving function here updates in
-place.
+place; the lock-step decode state adds a top-level scalar "pos".
 
-Supported: decoder token models whose every block is global attention with
-a dense FFN, with a tied or an untied output head (``head.out_head``, (d,
-V), as JAX's ``{"head": {"out_head"}}``).  Everything else raises
+Supported: decoder token models whose every block is attention — global,
+or windowed (sliding-window, as gemma3's local layers) — with a dense FFN,
+with a tied or an untied output head (``head.out_head``, (d, V), as JAX's
+``{"head": {"out_head"}}``).  Everything else raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -34,8 +37,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers import embeddings as emb
 from repro_torch.models.layers.common import dense_init, embed_init
+from repro_torch.models.layers.mlp import mlp_fwd
 from repro_torch.models.layers.norms import rmsnorm
 
 MOE_LB_WEIGHT = 0.01
@@ -160,16 +165,21 @@ def loss_fn(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
 
 
 def init_paged_state(params: Model, cfg: ModelCfg, batch: int, cache_len: int,
-                     *, page_size: int, n_pages: int, kv_dtype=None) -> Dict:
+                     *, page_size: int, n_pages: int, window_extra: int = 0,
+                     kv_dtype=None) -> Dict:
     """Decode state for the paged serving engine, on the params' device:
     block-table-indexed KV pools of ``n_pages`` pages of ``page_size`` per
-    layer.  ``kv_dtype`` (None | "float32" | "bfloat16" | "int8") selects
-    the pools' storage; int8 pools carry float32 scale pools."""
+    global layer, per-slot circular buffers per windowed layer.  Every slot
+    tracks its own position.  ``kv_dtype`` (None | "float32" | "bfloat16" |
+    "int8") selects the pools' storage; int8 pools carry float32 scale
+    pools.  ``window_extra`` must be at least ``prefill_chunk - 1`` when
+    prefill is chunked (see ``attention.init_paged_cache``)."""
     check_supported(cfg)
     dt = getattr(torch, cfg.dtype)
     return {"layers": [tfm.init_stage_state_paged(
         cfg, st, batch, cache_len, dt, page_size=page_size, n_pages=n_pages,
-        kv_dtype=kv_dtype, device=params.device) for st in cfg.stages]}
+        window_extra=window_extra, kv_dtype=kv_dtype, device=params.device)
+        for st in cfg.stages]}
 
 
 def paged_step(params: Model, cfg: ModelCfg, state, tokens, q_pos, valid, *,
@@ -222,9 +232,10 @@ def reset_paged_slots(cfg: ModelCfg, state, init_state, mask, ptab_rows,
                       prefix_len) -> Dict:
     """Admission, in place: for slots where ``mask`` is set, install the
     host-allocated block-table rows, make the ``prefix_len`` inherited
-    prefix positions live, and restore other per-slot leaves from
-    ``init_state`` (a template that must not alias ``state``).  Pools are
-    shared and untouched — they double as the prefix cache."""
+    prefix positions live, and fill a windowed layer's k/v buffers with
+    their fresh value, which ``init_state`` holds as a number per leaf
+    ({"layers": [[{"k": 0, "v": 0} or {}]]}).  Pools are shared and
+    untouched — they double as the prefix cache."""
     for st, ss, is0 in zip(cfg.stages, state["layers"], init_state["layers"]):
         tfm.reset_stage_slots(st, ss, is0, mask, ptab_rows, prefix_len)
     return state
@@ -287,3 +298,71 @@ def insert_kv_page(cfg: ModelCfg, state, page_data, page: int) -> Dict:
     for key, leaf, ax in paged_leaves(state):
         leaf.select(ax, page).copy_(page_data[key], non_blocking=True)
     return state
+
+
+# ---------------------------------------------------------------------------
+# Lock-step decode (the reference engine's path)
+
+
+def init_decode_state(params: Model, cfg: ModelCfg, batch: int,
+                      cache_len: int) -> Dict:
+    """Fresh lock-step decode state on the params' device: one
+    ``attention.init_cache`` per layer and the top-level position "pos"
+    (a 0-d int32 tensor), which every slot shares."""
+    check_supported(cfg)
+    dt = getattr(torch, cfg.dtype)
+    dev = params.device
+    return {"layers": [tfm.init_stage_state(cfg, st, batch, cache_len, dt,
+                                            device=dev)
+                       for st in cfg.stages],
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def decode_step(params: Model, cfg: ModelCfg, state, tokens_t, *,
+                sp_decode: bool = False):
+    """One lock-step decode token per batch row: tokens_t (B, 1) ints ->
+    (logits (B, 1, V), state), the state updated in place (every layer's
+    cache and "pos" advance by one)."""
+    dt = getattr(torch, cfg.dtype)
+    x = emb.embed_tokens(params.embed, tokens_t.long(), dt)
+    for st, sp, ss in zip(cfg.stages, params.stages, state["layers"]):
+        x, _ = tfm.stage_decode(sp, cfg, st, x, ss, sp_decode=sp_decode)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    state["pos"].add_(1)
+    return _logits(params, cfg, x), state
+
+
+@torch.no_grad()
+def prefill(params: Model, cfg: ModelCfg, state, tokens) -> Dict:
+    """Teacher-forced prompt ingestion into a lock-step state, in place:
+    tokens (B, S).  Each layer runs the full-sequence attention (the
+    chunked route, never flash, as in JAX) for the hidden states and writes
+    its cache (``attention.prefill_cache``); every "pos" becomes S."""
+    dt = getattr(torch, cfg.dtype)
+    x = emb.embed_tokens(params.embed, tokens.long(), dt)
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=x.device)
+    for st, sp, ss in zip(cfg.stages, params.stages, state["layers"]):
+        x = _stage_prefill(sp, cfg, st, x, ss, positions)
+    state["pos"].fill_(S)
+    return state
+
+
+def _stage_prefill(params, cfg: ModelCfg, stage, x, states, positions):
+    """One stage of ``prefill``: the layer loop of ``stage_step_ragged``,
+    each layer's output from ``attention_fwd`` and its cache from
+    ``prefill_cache``."""
+    for r in range(stage.repeats):
+        for i, blk in enumerate(stage.pattern):
+            tfm.check_block(blk)
+            bp, cache = tfm.layer_view(params[i], r), tfm.layer_view(states[i], r)
+            h = rmsnorm(bp["mixer_norm"], x, cfg.norm_eps)
+            x = x + attn.attention_fwd(bp["mixer"], blk.attn, h,
+                                       positions=positions,
+                                       q_chunk=cfg.attn_q_chunk)
+            attn.prefill_cache(bp["mixer"], blk.attn, cache, h, positions)
+            if blk.ffn is not None:
+                h = rmsnorm(bp["ffn_norm"], x, cfg.norm_eps)
+                x = x + mlp_fwd(bp["ffn"], blk.mlp, h)
+    return x

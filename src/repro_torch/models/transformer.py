@@ -1,5 +1,5 @@
-"""Blocks and stages: the training forward and the two serving steps
-(ragged pack and two-phase).
+"""Blocks and stages: the training forward, the two serving steps (ragged
+pack and two-phase) and the lock-step decode.
 
 Counterpart of ``repro.models.transformer``.  A stage's repeats keep JAX's
 stacked layout — every parameter and state leaf of a pattern position
@@ -9,8 +9,10 @@ views.  The views share storage with the stacked tensors, so the in-place
 cache writes of each layer land in the stacked state, and the gradients of
 the training forward land in the stacked parameters.
 
-Only dense global-attention blocks with a dense FFN are in this slice;
-mamba, xLSTM and MoE mixers raise ``NotImplementedError``.
+Attention blocks (global or windowed) with a dense FFN are ported; mamba,
+xLSTM and MoE mixers raise ``NotImplementedError``.  A stage's layer loop
+runs repeat r over every pattern position before repeat r + 1, JAX's scan
+order.
 """
 from __future__ import annotations
 
@@ -206,15 +208,18 @@ def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,
 
 def init_stage_state_paged(cfg: ModelCfg, stage: Stage, batch: int,
                            cache_len: int, dtype, *, page_size: int,
-                           n_pages: int, kv_dtype=None, device=None):
-    """One paged cache per pattern position, stacked over the repeats."""
+                           n_pages: int, window_extra: int = 0,
+                           kv_dtype=None, device=None):
+    """One serving cache per pattern position (paged for global layers,
+    per-slot circular buffers ``window_extra`` entries past the window for
+    windowed ones), stacked over the repeats."""
     out = []
     for blk in stage.pattern:
         check_block(blk)
         out.append(attn.init_paged_cache(
             blk.attn, batch, cache_len, dtype, page_size=page_size,
-            n_pages=n_pages, kv_dtype=kv_dtype, layers=stage.repeats,
-            device=device))
+            n_pages=n_pages, window_extra=window_extra, kv_dtype=kv_dtype,
+            layers=stage.repeats, device=device))
     return out
 
 
@@ -282,9 +287,13 @@ def reset_stage_slots(stage: Stage, states: List[dict], init_states,
                       mask, ptab_rows, prefix_len):
     """Admission, in place: for slots where ``mask`` is set, install
     ``ptab_rows`` into the block tables, make the first ``prefix_len``
-    positions live in ``kpos`` (the inherited prefix) and start ``slen`` at
-    ``prefix_len``; other per-slot leaves come from the fresh-init template
-    ``init_states``.  Pool leaves (values and int8 scales) are shared by all
+    positions live in ``kpos`` (the inherited prefix; a windowed layer's
+    buffer index is not its position, but it never inherits one) and start
+    ``slen`` at ``prefix_len``; the other per-slot leaves, a windowed
+    layer's k/v buffers, are filled in place with their fresh-init value,
+    which ``init_states`` holds as a number (0; JAX restores them from a
+    copy of the fresh state, which is the same, without a full-size
+    template).  Pool leaves (values and int8 scales) are shared by all
     slots and left alone.  mask: (B,) bool; ptab_rows: (B, pps);
     prefix_len: (B,)."""
     for s_blk, i_blk in zip(states, init_states):
@@ -302,7 +311,8 @@ def reset_stage_slots(stage: Stage, states: List[dict], init_states,
             elif name == "ptab":
                 src = ptab_rows.to(leaf.dtype)
             else:
-                src = i_blk[name]
+                leaf.masked_fill_(m, i_blk[name])
+                continue
             leaf.copy_(torch.where(m, src, leaf))
     return states
 
@@ -321,3 +331,44 @@ def rollback_stage_slots(stage: Stage, states: List[dict], mask, new_len):
         kpos.copy_(torch.where(m[..., None] & (kpos >= nl[..., None]), -1, kpos))
         slen.copy_(torch.where(m, torch.minimum(slen, nl.to(slen.dtype)), slen))
     return states
+
+
+# ---------------------------------------------------------------------------
+# Lock-step decode (the reference engine)
+
+
+def init_stage_state(cfg: ModelCfg, stage: Stage, batch: int, cache_len: int,
+                     dtype, *, device=None):
+    """One lock-step cache per pattern position (``attention.init_cache``),
+    stacked over the repeats (JAX ``init_stage_state``)."""
+    out = []
+    for blk in stage.pattern:
+        check_block(blk)
+        out.append(attn.init_cache(blk.attn, batch, cache_len, dtype,
+                                   layers=stage.repeats, device=device))
+    return out
+
+
+def block_decode(params, cfg: ModelCfg, blk: BlockCfg, x, state, *,
+                 sp_decode: bool = False):
+    """One layer of the lock-step decode (x: (B, 1, D); ``params``/``state``
+    one layer's views; the cache is updated in place)."""
+    check_block(blk)
+    h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
+    m, state = attn.attention_decode(params["mixer"], blk.attn, h, state,
+                                     sp_decode=sp_decode)
+    x = x + m
+    if blk.ffn is not None:
+        h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
+        x = x + mlp_fwd(params["ffn"], blk.mlp, h)
+    return x, state
+
+
+def stage_decode(params, cfg: ModelCfg, stage: Stage, x, states, *,
+                 sp_decode: bool = False):
+    """The lock-step decode's layer loop, as ``stage_step_ragged``'s."""
+    for r in range(stage.repeats):
+        for i, blk in enumerate(stage.pattern):
+            x, _ = block_decode(layer_view(params[i], r), cfg, blk, x,
+                                layer_view(states[i], r), sp_decode=sp_decode)
+    return x, states

@@ -97,6 +97,14 @@ identical to the JAX engine's on the same weights:
   ``stats["kernel_launches"]`` adds the launches recorded at capture for
   every replay.
 
+- **Windowed models** (gemma3's sliding-window layers).  A windowed
+  layer keeps per-slot circular buffers ``prefill_chunk`` entries longer
+  than its window instead of pages; global layers of the same model stay
+  paged.  As in JAX, the prefix cache (and so the host tier), speculation
+  and preemption need every layer paged and are switched off silently for
+  such a model (``stats["spec_k"]`` reads 0), and a model with no paged
+  layer takes one block table per slot of pages and reserves none.
+
 Left for a later slice, raising ``NotImplementedError``: tensor
 parallelism (``mesh``).
 """
@@ -198,14 +206,25 @@ class ServeEngine:
         self._default_pack = (
             getattr(cls, "decode_order", None) is Scheduler.decode_order
             and getattr(cls, "prefill_order", None) is Scheduler.prefill_order)
-        # every layer is paged global attention (check_supported below), the
-        # condition under which JAX lets a rollback undo a draft
-        self._spec_k = int(getattr(self.scheduler, "spec_k", 0))
+        # JAX's gates for windowed models: a windowed layer keeps per-slot
+        # circular buffers, which no other slot can inherit and which a
+        # write advances destructively, so the prefix cache (and with it the
+        # host tier), speculation (nothing to roll back to) and preemption
+        # (no page holds a windowed layer's state) need every layer to be
+        # paged global attention; a windowed model serves with them off,
+        # silently, and stats["spec_k"] reports 0
+        M.check_supported(cfg)
+        self._has_paged = any(blk.mixer == "attn" and blk.attn.window is None
+                              for st in cfg.stages for blk in st.pattern)
+        all_global = self._has_paged and all(
+            blk.mixer == "attn" and blk.attn.window is None
+            for st in cfg.stages for blk in st.pattern)
+        self._spec_k = (int(getattr(self.scheduler, "spec_k", 0))
+                        if all_global else 0)
         self._draft = getattr(self.scheduler, "draft", None)
         if self._draft is None:
             self._spec_k = 0
         self.device = resolve_device(device)
-        M.check_supported(cfg)
         self.params = params.to(self.device)
         self.cfg = cfg
         self.B = batch_size
@@ -228,9 +247,8 @@ class ServeEngine:
             raise ValueError(
                 f"token_budget={token_budget} < batch_size={batch_size}: "
                 "every decoding slot needs one pack entry per tick")
-        # preemption resumes through the ragged pack (JAX's gate; every
-        # layer is paged global attention here)
-        self.preempt = bool(preempt) and ragged
+        # preemption resumes through the ragged pack (JAX's gate)
+        self.preempt = bool(preempt) and ragged and all_global
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.max_queue = max_queue
@@ -241,18 +259,19 @@ class ServeEngine:
         self._preempted: Dict[int, dict] = {}
         self._chaos_alloc_fail = False
         self.pps = -(-cache_len // page_size)  # block-table width
-        # every layer is paged global attention (check_supported), so the
-        # prefix cache always applies
-        self.prefix_cache = bool(prefix_cache)
+        self.prefix_cache = bool(prefix_cache) and all_global
         # the page budget is a BYTE budget: the same bytes the activation-
         # dtype pool would take, never below one full block table per slot
+        # (a model with no paged layer takes that floor)
         base_pages = batch_size * self.pps
         if max_pages is not None:
             self.n_pages = max_pages
-        else:
+        elif self._has_paged:
             ref = kv_page_bytes(cfg, page_size, cfg.dtype)
             act = kv_page_bytes(cfg, page_size, self.kv_dtype)
             self.n_pages = max(base_pages, base_pages * ref // max(act, 1))
+        else:
+            self.n_pages = base_pages
         # the host tier only matters with the prefix cache on (and for
         # parks, which JAX gates the same way)
         self.host_pages = host_pages if self.prefix_cache else 0
@@ -459,7 +478,10 @@ class ServeEngine:
     # -- admission --------------------------------------------------------
     def _pages_needed(self, req: Request, matched_pages: int = 0) -> int:
         """Pages the request must RESERVE: its full footprint minus the
-        ``matched_pages`` shared prefix pages it maps instead."""
+        ``matched_pages`` shared prefix pages it maps instead (none when no
+        layer is paged)."""
+        if not self._has_paged:
+            return 0
         total = -(-(len(req.prompt) + req.max_tokens) // self.page_size)
         return total - matched_pages
 
@@ -1108,9 +1130,13 @@ class ServeEngine:
 
     def _ensure_state(self):
         """Decode state is created once and persists for the engine's whole
-        life (the pool's pages ARE the prefix cache).  The reset template
-        holds fresh copies of the per-slot leaves only — it must not alias
-        the live state, and the pools are never reset.  The host tier's
+        life (the pool's pages ARE the prefix cache).  Windowed layers'
+        buffers hold ``prefill_chunk`` entries past the window, as in JAX.
+        The reset template holds what admission restores from it: a
+        windowed layer's k/v buffers, whose fresh value is 0 and is kept as
+        that number (``transformer.reset_stage_slots`` fills the admitted
+        slots in place); block tables, ``kpos`` and ``slen`` are set from
+        the admission itself and the pools are never reset.  The host tier's
         store is allocated beside it: one tensor per paged leaf, a row per
         host slot, pinned on a CUDA device (a failed pinned allocation
         raises; nothing falls back to pageable memory).  The steps of the
@@ -1120,10 +1146,10 @@ class ServeEngine:
             self._state = M.init_paged_state(
                 self.params, self.cfg, self.B, self.cache_len,
                 page_size=self.page_size, n_pages=self.n_pages,
-                kv_dtype=self.kv_dtype)
+                window_extra=self.chunk, kv_dtype=self.kv_dtype)
             self._template = {"layers": [
-                [{k: v.clone() for k, v in c.items() if k not in POOL_LEAVES}
-                 for c in ss] for ss in self._state["layers"]]}
+                [{k: 0 for k in ("k", "v") if k in c} for c in ss]
+                for ss in self._state["layers"]]}
             if self.host_pages:
                 pin = self.device.type == "cuda"
                 self._host_store = {

@@ -25,6 +25,7 @@ whole step.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -126,7 +127,8 @@ class CapturedStep:
 
     On a CUDA device with ``capture`` the constructor runs ``fn`` on the
     idle pack ``WARMUP_CALLS`` times on a side stream, then captures one
-    call into a CUDA graph; ``run`` copies a pack into the static inputs
+    call into a CUDA graph, with Python's cyclic garbage collected first
+    and the collector off while the capture runs; ``run`` copies a pack into the static inputs
     (through pinned host buffers) and replays the graph.  A failed capture
     or replay raises: nothing falls back to eager.  Without ``capture``, or
     on the CPU, ``run`` calls ``fn`` eagerly on the same static inputs.
@@ -184,8 +186,19 @@ class CapturedStep:
         self._keep = list(pfd._TICKETS.values())
         graph = torch.cuda.CUDAGraph()
         before = kernel_launches()
-        with torch.cuda.graph(graph):
-            self._out = self._fn(*self.inputs)
+        # a dead object's CUDA frees (another engine's graphs, events or
+        # pinned buffers, held in a reference cycle) invalidate the capture
+        # if the collector runs them while it is under way: collect first,
+        # and keep the collector off until the capture ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._out = self._fn(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = kernel_launches() - before
         self.graph = graph
 

@@ -16,6 +16,8 @@ CPU (the qwen2-1.5b smoke config):
   clamped onto the pool's last page, which a live slot owns) write what the
   JAX package's steps write: logits and float leaves within atol = rtol =
   1e-4 in float32, integer and int8 leaves equal;
+- the same for gemma3's smoke config (windowed layers, window 16): its
+  ragged, chunk and decode steps and an admission's slot reset;
 - a ``CapturedStep``'s static inputs keep their ``data_ptr()`` across
   ticks, and ``stats["traces"]`` is 1 once the ragged step has run, as
   the JAX engine counts traces.
@@ -24,11 +26,14 @@ CPU (the qwen2-1.5b smoke config):
 engines give token-identical transcripts for the ragged and two-phase
 paths, float32/bfloat16/int8 pools and both routes; ``traces`` is 1 on the
 ragged engine; the pools never move; ``kernel_launches`` is the number of
-layers times the kernel's ticks; one eager step under
-``torch.cuda.set_sync_debug_mode("error")`` raises nothing.  JAX is
+layers times the kernel's ticks (for a windowed model, of its global
+layers); one eager step under
+``torch.cuda.set_sync_debug_mode("error")`` raises nothing; a dead engine
+in a reference cycle does not break another engine's capture.  JAX is
 imported lazily (a fixture), so that ``pytest -m gpu`` runs where there is
 no JAX.
 """
+import gc
 import types
 
 import pytest
@@ -196,6 +201,55 @@ def test_steps_dispatch_no_host_synchronising_op(smoke, kind, kv_dtype, flash):
     step = steps[kind]
     with _Recorder() as rec:
         step.run(*_pack_for(kind, seed=2))
+    assert rec.bad == []
+
+
+@pytest.fixture(scope="module")
+def windowed():
+    """gemma3-4b's smoke config (two windowed layers, window 16, then a
+    global one) in float32, seed-0 weights."""
+    cfg = tget("gemma3-4b", smoke=True).replace(dtype="float32")
+    params = TM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    return cfg, params
+
+
+def _windowed_state(cfg, params, kv_dtype):
+    """A serving state with windowed buffers ``C`` entries past the window
+    (as the engine makes them), its three slots admitted."""
+    state = TM.init_paged_state(params, cfg, B, CACHE, page_size=P,
+                                n_pages=NPAGES, window_extra=C,
+                                kv_dtype=kv_dtype)
+    rows = np.full((B, PPS), NPAGES, np.int32)
+    rows[:, :3] = np.arange(3 * B).reshape(B, 3) + 2
+    tmpl = {"layers": [[{k: 0 for k in ("k", "v") if k in c} for c in ss]
+                       for ss in state["layers"]]}
+    TM.reset_paged_slots(cfg, state, tmpl, torch.ones(B, dtype=torch.bool),
+                         torch.from_numpy(rows), torch.zeros(B, dtype=torch.int32))
+    return state, tmpl, rows
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["gather", "kernel"])
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("kind", ["ragged", "chunk", "decode", "reset"])
+def test_windowed_steps_dispatch_no_host_synchronising_op(windowed, kind,
+                                                          kv_dtype, flash):
+    """The same recorder over a windowed model's steps (its circular-buffer
+    writes and attention) and over an admission's slot reset (a windowed
+    buffer filled from its template's 0)."""
+    cfg, params = windowed
+    state, tmpl, rows = _windowed_state(cfg, params, kv_dtype)
+    steps = {k: v for k, v in _steps(cfg, params, state, flash).items()
+             if k in ("ragged", "chunk", "decode")}
+    steps["ragged"].run(*_ragged_pack(seed=1))
+    with _Recorder() as rec:
+        if kind == "reset":
+            TM.reset_paged_slots(cfg, state, tmpl,
+                                 torch.tensor([False, True, False]),
+                                 torch.from_numpy(rows),
+                                 torch.zeros(B, dtype=torch.int32))
+        else:
+            steps[kind].run(*_pack_for(kind, seed=2))
     assert rec.bad == []
 
 
@@ -420,6 +474,106 @@ def test_captured_engine_matches_eager_engine(ragged, act, kv_dtype, flash):
                                    else se["decode_ticks"])
     launches = cfg.n_layers * ticks if flash else 0
     assert st["kernel_launches"] == se["kernel_launches"] == launches
+
+
+def _card_windowed_cfg(act):
+    """gemma3's interleave cut small: two stacked repeats of (windowed,
+    windowed, global) layers, window 32, head_dim 64 (the global layers'
+    bf16 kernels take the tensor-core variant)."""
+    from repro_torch.configs import Stage
+    from repro_torch.configs.util import attn_block
+
+    local = attn_block(4, 2, 64, 512, window=32, rope_theta=1e4)
+    glob = attn_block(4, 2, 64, 512, rope_theta=1e6)
+    base = _card_cfg(act)
+    return base.replace(name="capture-window-test",
+                        stages=(Stage((local, local, glob), 2),))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flash", [False, True], ids=["gather", "kernel"])
+@pytest.mark.parametrize("act,kv_dtype", [("float32", "float32"),
+                                          ("bfloat16", "bfloat16"),
+                                          ("bfloat16", "int8")])
+@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "two-phase"])
+def test_captured_windowed_engine_matches_eager_engine(ragged, act, kv_dtype,
+                                                       flash):
+    """A windowed model served captured and eagerly: equal transcripts (the
+    40-token prompt wraps the 48-entry buffers), the pools in place, and
+    kernel launches only in the global layers, one each a kernel tick."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = _card_windowed_cfg(act)
+    params = TM.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    kw = dict(batch_size=3, cache_len=128, page_size=16, prefill_chunk=16,
+              token_budget=32, ragged=ragged, flash_decode=flash,
+              kv_dtype=kv_dtype, device="cuda")
+    eager = ServeEngine(params, cfg, cuda_graph=False, **kw)
+    graph = ServeEngine(params, cfg, **kw)
+    assert not graph.prefix_cache
+    ptrs = [t.data_ptr() for t in graph.pool_tensors()]
+    want = _card_serve(eager, cfg.vocab_size)
+    assert _card_serve(graph, cfg.vocab_size) == want
+    assert [t.data_ptr() for t in graph.pool_tensors()] == ptrs
+    st, se = graph.stats, eager.stats
+    assert st["graph_captures"] == (1 if ragged else 2)
+    ticks = st["ragged_ticks"] if ragged else st["decode_ticks"]
+    assert ticks > 0 and ticks == (se["ragged_ticks"] if ragged
+                                   else se["decode_ticks"])
+    launches = 2 * ticks if flash else 0  # two global layers
+    assert st["kernel_launches"] == se["kernel_launches"] == launches
+
+
+class _ReleasingGraph(torch.cuda.graph):
+    """``torch.cuda.graph`` that, once its capture has begun, hands what
+    ``held`` holds to a fresh reference cycle and drops every other
+    reference to it, with the collector set to run at every allocation:
+    the collector's next run frees it, inside the capture unless the
+    collector is off."""
+
+    held: list = []
+
+    def __enter__(self):
+        out = super().__enter__()
+        box = list(self.held)
+        box.append(box)
+        self.held.clear()
+        gc.set_threshold(1, 1, 1)
+        return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "two-phase"])
+def test_capture_survives_a_dead_engine_in_a_reference_cycle(ragged,
+                                                              monkeypatch):
+    """A captured engine whose last reference, from a reference cycle,
+    goes once another engine's capture has begun, with the collector set
+    to run at every allocation: its graphs, events and pinned buffers must
+    not be freed inside that capture.  The capture completes and the new
+    engine serves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = _card_cfg("bfloat16")
+    params = TM.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    kw = dict(batch_size=3, cache_len=128, page_size=16, prefill_chunk=16,
+              token_budget=32, ragged=ragged, flash_decode=True, device="cuda")
+    dead = ServeEngine(params, cfg, **kw)
+    dead.pool_tensors()  # captures its steps
+    _ReleasingGraph.held[:] = [dead]
+    del dead
+    monkeypatch.setattr(torch.cuda, "graph", _ReleasingGraph)
+    thresholds = gc.get_threshold()
+    try:
+        eng = ServeEngine(params, cfg, **kw)
+        eng.pool_tensors()
+    finally:
+        gc.set_threshold(*thresholds)
+        _ReleasingGraph.held.clear()
+    assert eng.stats["graph_captures"] == (1 if ragged else 2)
+    uid = eng.submit(np.arange(20) % cfg.vocab_size, max_tokens=3)
+    assert len(eng.run()[uid]) == 3
 
 
 @pytest.mark.gpu

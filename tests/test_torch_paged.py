@@ -373,8 +373,12 @@ def test_launcher_serves_the_chunked_engine(capsys):
                         "--max-tokens", "3", "--flash-decode"]) == 0
     out = capsys.readouterr().out
     assert out.count("req ") == 3 and "'decode_ticks': " in out
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tserve.main(["--engine", "reference", "--device", "cpu"])
+    # the lock-step engine serves too, with no stats line (as JAX's)
+    assert tserve.main(["--engine", "reference", "--device", "cpu",
+                        "--requests", "2", "--batch-size", "2",
+                        "--max-tokens", "2"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("req ") == 2 and "stats:" not in out
 
 
 @pytest.mark.gpu
