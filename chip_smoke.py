@@ -36,13 +36,17 @@ Phases (every check asserts; any failure exits non-zero):
      run, as the speculative engine packs them).
    - flash_attention at the training shape (q (24, 4096, 128) over k/v
      (4, 4096, 128): batch 2 x 2 KV heads x 6 query heads each) in f32 and
-     bf16, windowed (window 512, bf16), and a small odd case (S 96, G 3,
-     bq = bk = 32) in f32 and bf16, each case's variant ("wgmma" for bf16,
-     "simt" for f32, as ``flash_variant`` says) and TFLOP/s printed; then
+     bf16, windowed (window 512, bf16), a small odd case (S 96, G 3,
+     bq = bk = 32) in f32 and bf16, and gemma3-4b's global layers (q (8,
+     4096, 256) over k/v (4, 4096, 256), batch 1) in f32 and bf16 with
+     window none and 512, each case's variant ("wgmma" for bf16 at hd 64
+     and 128, "simt" otherwise, as ``flash_variant`` says) and TFLOP/s
+     printed; then
      CUDA-event and device times of the kernel, event times of the plain
      version and ``scaled_dot_product_attention`` (the library yardstick,
      which the port never calls) at the training shape in bf16 and f32,
-     beside the operation bound.
+     beside the operation bound; and at gemma3's global shape, f32 and
+     bf16, device time beside the plain version, SDPA and the bound.
    - paged_flash_decode at phase 4's decode tick (8 slots, lens up to
      2048, one empty slot, sentinel pages), q in {f32, bf16} x pools in
      {f32, bf16, int8}, each case's variant (``kernel_variant``: "mma" for
@@ -74,10 +78,11 @@ Phases (every check asserts; any failure exits non-zero):
 4. Full-width qwen2-1.5b (seed-0 random weights, bf16 activations,
    flash_decode=True) serves 8 requests through ServeEngine — two share a
    300-token prefix, so prefix hits and copy-on-write run — through the
-   ragged engine (all 28 layers) and the two-phase engine (``ragged=False``:
-   batched prefill chunks, then decode ticks through paged_flash_decode;
-   cut to its first 14 layers since phase 4b came in, to keep the run's
-   time), each with
+   ragged engine (its first 14 of 28 layers) and the two-phase engine
+   (``ragged=False``: batched prefill chunks, then decode ticks through
+   paged_flash_decode; its first 7 layers) — depth cut to keep the run's
+   time since phases 4e-6c came in (``SERVE_LAYERS``, ``TWO_PHASE_LAYERS``)
+   — each with
    bf16 and with int8 pools, each in two arms: captured (the default: each
    step replays its CUDA graph) and eager (``cuda_graph=False``).  Every
    request returns 32 tokens, the sampled logits stay finite, the pools
@@ -98,23 +103,24 @@ Phases (every check asserts; any failure exits non-zero):
    (``record_function`` ranges wrapped around the engine's methods here).
    Printed per path, pools and arm: wall ms per tick, tokens/s, busy ms per
    tick, idle share, host ranges.
-4b. Speculative serving at full width: glm4-9b (40 layers, untied head,
-   seed-0 random weights, bf16 activations, 9.40 B parameters) through the
+4b. Speculative serving at full width: glm4-9b (untied head, seed-0
+   random weights, bf16 activations; its first 20 of 40 layers,
+   ``SPEC_LAYERS``, 5.32 B parameters) through the
    captured ragged engine (phase 4's settings) on 8 requests of 64–512
    prompt and 64 output tokens (four tiled prompts, four over tokens 1–4),
    at spec_k 0 and 4, with bf16 and with int8 pools.  Per pool type the two
    transcripts are equal; at spec_k 4 drafted = accepted + rejected,
-   drafts are accepted and rolled back; the engine counts 40 kernel
+   drafts are accepted and rolled back; the engine counts 20 kernel
    launches per ragged tick, one trace, the pools never move.  The bf16
    arms are repeated under the CUDA profiler, whose "mma" attention-kernel
    instances must equal that count.  Printed per arm: ticks, wall ms per
    tick, tokens/s, tokens per sampled slot-tick, busy ms per tick and idle
    share (bf16), the host ms of the logits copy.
-4c. The host tier, preemption and faults at full width: qwen2-1.5b (28
-   layers, seed-0 random weights, bf16 activations) through the captured
-   ragged engine at phase 4's settings, bf16 and int8 pools.  Tier: waves
-   A (8 requests over prefix families 0-7: a 1024-token family prefix, a
-   64-token suffix, 32 output tokens), B (families 8-15, which push A's
+4c. The host tier, preemption and faults at full width: qwen2-1.5b
+   (phase 4's 14 layers, seed-0 random weights, bf16 activations) through
+   the captured ragged engine at phase 4's settings, bf16 and int8 pools.
+   Tier: waves A (8 requests over prefix families 0-7: a 1024-token family
+   prefix, a 64-token suffix, 32 output tokens), B (families 8-15, which push A's
    prefixes out of a 600-page device pool) and A' (A's prompts again),
    with 1024 host slots (pinned) and without: tiered transcripts equal the
    untiered ones, wave A' hits the host tier and promotes pages; the same
@@ -153,6 +159,21 @@ Phases (every check asserts; any failure exits non-zero):
    decode tick), and the two-phase engine at the first 12 layers (10
    windowed, 2 global), bf16 and int8 pools: kernel 2 launched twice a
    decode tick.
+4e. Recurrent serving at full width: xlstm-350m FULL (24 layers: 21
+   mLSTM at 4 heads of head_dim 512, 3 sLSTM with a gated-gelu FFN; d 1024,
+   0.499 B parameters; seed-0 weights, bf16 activations) through the ragged
+   engine, captured and eager, at phase 4's batch and budget (prefill_chunk
+   ``XLSTM_CHUNK``, so each tick rolls the single-step decode chunk + 1
+   times a layer, JAX's design; 32, for the note at ``XLSTM_CHUNK``) on 8
+   requests of 64–512 prompt and 32 output tokens: captured transcripts
+   equal the eager ones; the recurrent
+   gates hold (no prefix cache, speculation or preemption, no page
+   reserved, no pool); no attention kernel launches (no paged layer); the
+   state never moves.  A captured repeat profiles four ticks (two of
+   prefill, two of decode) in their own CUDA profiler sessions: device busy
+   time, idle share against the unprofiled run's same tick, and the kernels
+   a replay runs.  Printed per arm: ms per tick, tokens/s, build and
+   capture time, peak memory.
 5. The kernel route against the gather route at full width in f32: after a
    prefill step, one ragged step of a mixed pack from the same state
    through each route; then, for the two-phase path, one decode tick after
@@ -178,9 +199,23 @@ Phases (every check asserts; any failure exits non-zero):
    its idle share, the kernel's share and the top kernels; another (CPU
    activity) the host ops by self time; then every parameter gets a finite
    gradient.
+6b. gemma3-4b training at full width (d 2560, 8 query over 4 KV heads at
+   head_dim 256, vocab 262144), cut to its first 12 layers (10 windowed, 2
+   global), bf16 activations over float32 parameters and moments, remat
+   "full", ``use_flash``: three ``TrainLoop`` steps at sequence 4096,
+   batch 1.  Every loss is finite; the flash kernel launches 2 x 2 times a
+   step (the global layers' forward and recomputation; the windowed layers
+   take the chunked route, as in JAX), all "simt".  Per step: time and
+   tokens/s; peak memory.
+6c. xlstm-350m FULL training: three ``TrainLoop`` steps at sequence 1024,
+   batch 1, bf16 activations over float32 parameters, remat "full" (no
+   attention, so no ``use_flash``).  Every loss is finite and every
+   parameter gets a finite gradient; per step: time; peak memory.
 7. The kernel route against the chunked route of training at full width in
-   f32, the stage cut to 4 layers, batch 1, sequence 4096: ``loss_fn``
-   agrees to rtol 1e-4 and every gradient leaf to atol 1e-3 x its max |g|.
+   f32, batch 1, sequence 4096, for qwen2-1.5b cut to 4 layers and
+   gemma3-4b cut to phase 6b's 12: ``loss_fn`` agrees to rtol 1e-4 and
+   every gradient leaf to atol 1e-3 x its max |g|; the kernel launches
+   twice a global layer, all "simt" (f32).
 8. The paper's experiment from ``repro_torch.benchmarks``: the Fig. 4/5
    matmul sweep (cuBLAS and the matmul kernel, nproc 1 to 64, N =
    16384/sqrt(nproc), f32) and the 15-row memory-mode table (8192^3 f32),
@@ -915,6 +950,11 @@ def rmsnorm_route(card: str) -> int:
     return launches
 
 
+# gemma3-4b's global layers at batch 1, sequence 4096: 8 query heads over 4
+# KV heads at head_dim 256 (the "simt" variant)
+GEMMA_FLASH = dict(BH=8, BKV=4, S=4096, hd=256)
+
+
 def flash_inputs(BH, BKV, S, hd, dtype, seed=0):
     g = torch.Generator("cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -959,6 +999,8 @@ def check_flash(card: str) -> dict:
              ("windowed", main, torch.bfloat16, 512, 128),
              ("odd", odd, torch.float32, None, 32),
              ("odd", odd, torch.bfloat16, None, 32)]
+    cases += [("gemma3 global", GEMMA_FLASH, dt, window, 128)
+              for dt in (torch.float32, torch.bfloat16) for window in (None, 512)]
     errs = {}
     for name, shape, dt, window, blk in cases:
         q, k, v = flash_inputs(**shape, dtype=dt)
@@ -1015,6 +1057,42 @@ def check_flash(card: str) -> dict:
             out.update(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib)
         del q, k, v, q4, k4, v4
+    out["gemma"] = flash_gemma_times(card)
+    return out
+
+
+def flash_gemma_times(card: str) -> dict:
+    """Device and event times of the kernel at gemma3's global shape, f32
+    and bf16, causal, beside its plain version, SDPA and the operation
+    bound; {dtype name: {"device_ms", "ms", "plain_ms", "library_ms",
+    "bound_ms"}}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(**GEMMA_FLASH, dtype=dt)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters=10, warmup=2)
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v), iters=5)
+        plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v), iters=3,
+                        warmup=1)
+        q4 = q.view(1, 8, 4096, 256)
+        k4, v4 = (t.view(1, 4, 4096, 256) for t in (k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=True, enable_gqa=True)
+        lib = cuda_ms(sdpa, iters=10, warmup=2)
+        b_ms, b_by = flash_bound(q, k)
+        name = str(dt).split(".")[-1]
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        print(f"flash_attention at gemma3-4b's global shape {tuple(q.shape)} "
+              f"over {tuple(k.shape)} {dt}, variant "
+              f"{fa.flash_variant(dt, 256)}, on {card}: kernel device "
+              f"{fmt_ms(dev_ms)} (events {ms:.4f} ms = "
+              f"{flash_flops(q) / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} "
+              f"ms, scaled_dot_product_attention {lib:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), share of bound {b_ms / ms:.4f}, "
+              f"kernel / library {ms / lib:.2f}")
+        del q, k, v, q4, k4, v4
     return out
 
 
@@ -1054,7 +1132,20 @@ def _ranged(name, fn):
     return run
 
 
-TWO_PHASE_LAYERS = 14  # phase 4's two-phase path: half of qwen2-1.5b's 28
+# depth cuts that keep the script's time: phase 4's ragged path (and phase
+# 4c) at half of qwen2-1.5b's 28 layers, its two-phase path at a quarter
+# (each at 28 and 14 before the xLSTM phases came in), phase 4b at half of
+# glm4-9b's 40
+SERVE_LAYERS = 14
+TWO_PHASE_LAYERS = 7
+SPEC_LAYERS = 20
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg``'s one-stage pattern cut to ``layers`` repeats."""
+    from repro_torch.configs import Stage
+
+    return cfg.replace(stages=(Stage(cfg.stages[0].pattern, layers),))
 
 
 class RecordsLost(AssertionError):
@@ -1442,7 +1533,7 @@ def serve_spec(params, cfg, kv_dtype, card: str, *, spec_k: int,
     toks = sum(len(results[h]) for h in handles)
     arm = f"spec_k {spec_k}"
     tag = ", profiled (cuda)" if profile else ""
-    print(f"serve {cfg.name} FULL ({cfg.n_layers} layers), ragged, captured, "
+    print(f"serve {cfg.name} full width ({cfg.n_layers} layers), ragged, captured, "
           f"pools {kv_dtype or 'bfloat16'}, {arm}{tag}, on {card}: "
           f"{len(handles)} requests, {toks} tokens in {wall:.3f} s = "
           f"{toks / wall:.1f} tokens/s, {ticks} ticks, {1e3 * wall / ticks:.2f} "
@@ -1466,18 +1557,20 @@ def serve_spec(params, cfg, kv_dtype, card: str, *, spec_k: int,
 
 
 def spec_phase(card: str) -> dict:
-    """glm4-9b FULL (40 layers, untied head, seed-0 random weights, bf16
-    activations) serves the speculative workload captured at spec_k 0 and
-    4, with bf16 and with int8 pools: each pool type's two transcripts must
-    be equal token for token.  The bf16 arms are repeated once each under
-    the CUDA profiler (busy time, idle share, kernel instances)."""
+    """glm4-9b at full width cut to ``SPEC_LAYERS`` layers (untied head,
+    seed-0 random weights, bf16 activations) serves the speculative
+    workload captured at spec_k 0 and 4, with bf16 and with int8 pools:
+    each pool type's two transcripts must be equal token for token.  The
+    bf16 arms are repeated once each under the CUDA profiler (busy time,
+    idle share, kernel instances)."""
     from repro_torch.configs import get_config, param_count
     from repro_torch.models import model as M
 
-    cfg = get_config("glm4-9b")
+    cfg = cut_depth(get_config("glm4-9b"), SPEC_LAYERS)
     params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda")
-    print(f"glm4-9b FULL: {param_count(cfg) / 1e9:.3f} B parameters, "
+    print(f"glm4-9b full width, {cfg.n_layers} layers: "
+          f"{param_count(cfg) / 1e9:.3f} B parameters, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     res = {}
     for kv in (None, "int8"):
@@ -1757,7 +1850,7 @@ def tier_phase(card: str) -> dict:
     from repro_torch.models import model as M
 
     t0 = time.perf_counter()
-    cfg = get_config("qwen2-1.5b")
+    cfg = cut_depth(get_config("qwen2-1.5b"), SERVE_LAYERS)
     params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda")
     res = {"launches": 0}
@@ -1890,10 +1983,10 @@ LOCKSTEP_WAVE, LOCKSTEP_LEN = 4, 1200
 
 
 def global_layers(cfg) -> int:
-    """Layers of ``cfg`` without a window: the paged ones, each launching
-    the serving kernel once a kernel tick."""
+    """Attention layers of ``cfg`` without a window: the paged ones, each
+    launching the serving kernel once a kernel tick."""
     return sum(st.repeats for st in cfg.stages for blk in st.pattern
-               if blk.attn.window is None)
+               if blk.mixer == "attn" and blk.attn.window is None)
 
 
 def serve_gemma(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
@@ -2162,6 +2255,159 @@ def lockstep_vs_ragged(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 4e. recurrent serving at full width (xlstm-350m)
+
+# 8 requests of 64-512 prompt tokens, 32 output tokens each; phase 4's
+# batch and token budget.  The prefill chunk sets the roll's width: every
+# tick rolls the single-step decode chunk + 1 times a layer, whatever the
+# pack holds (JAX's design).  At phase 4's chunk of 128 the phase took
+# 340 s on an NVIDIA H100 80GB HBM3 at 700 W (41 ticks of 780 ms captured
+# and 4.25 s eager, 169,575 kernels a replay; PERF.md), over a quarter of
+# the script's time limit, so it runs at 32 (width 33), an engine setting
+# JAX has too.
+XLSTM_LENS = (64, 512, 200, 384, 96, 448, 256, 320)
+XLSTM_OUT = 32
+XLSTM_CHUNK = 32
+XLSTM_KW = dict(batch_size=8, cache_len=1024, page_size=16,
+                prefill_chunk=XLSTM_CHUNK, token_budget=256, flash_decode=True)
+
+
+def serve_xlstm(params, cfg, card: str, *, captured: bool = True,
+                profile=()) -> dict:
+    """The xlstm workload (``XLSTM_LENS``, ``XLSTM_OUT`` tokens each, seed
+    10) once through the ragged engine, captured or eager, each tick timed
+    on the host (it ends waiting for its logits).  Asserts every request's
+    length, finite logits, the recurrent gates (no paged layer: no prefix
+    cache, speculation or preemption, one block table a slot of pages, no
+    pool tensor), no attention-kernel launch (there is nothing to launch),
+    and every state leaf in place.  The ticks whose indices ``profile``
+    lists run under their own CUDA profiler session: their device busy
+    time and kernel count."""
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import ragged_paged_flash as rpf
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(params, cfg, device=params.device, cuda_graph=captured,
+                      **XLSTM_KW)
+    assert not eng._has_paged and not eng.prefix_cache
+    assert eng._spec_k == 0 and not eng.preempt and eng.host_pages == 0
+    assert eng.n_pages == eng.B * eng.pps
+    t0 = time.perf_counter()
+    assert eng.pool_tensors() == []  # builds (and captures) the step
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    leaves = [t for ss in eng._state["layers"] for c in ss for t in c.values()]
+    ptrs = [t.data_ptr() for t in leaves]
+    state_gib = sum(t.numel() * t.element_size() for t in leaves) / 2**30
+    assert eng.stats["graph_captures"] == (1 if captured else 0)
+    sample = eng._sample
+
+    def checked_sample(req, row, ordinal):
+        assert math.isfinite(row.min()) and math.isfinite(row.max()), \
+            "non-finite logits"
+        return sample(req, row, ordinal)
+
+    eng._sample = checked_sample
+    rng = np.random.RandomState(10)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in XLSTM_LENS]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    rpf.reset_launches()
+    pfd.reset_launches()
+    handles = [eng.submit(p, max_tokens=XLSTM_OUT) for p in prompts]
+    results, walls, prof = {}, [], {}
+    t0 = time.perf_counter()
+    while not eng.idle:
+        i = len(walls)
+        session = (torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+            if i in profile else contextlib.nullcontext())
+        with session:
+            start = time.perf_counter()
+            results.update(eng.tick())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+        if i in profile:
+            events = [e for e in session.key_averages() if _device_us(e) > 0]
+            prof[i] = dict(busy_ms=sum(_device_us(e) for e in events) / 1e3,
+                           kernels=sum(e.count for e in events))
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    assert all(len(results[h]) == XLSTM_OUT for h in handles), \
+        {int(h): len(results[h]) for h in handles}
+    assert st["kernel_launches"] == rpf.launches == pfd.launches == 0, \
+        (st["kernel_launches"], rpf.launches, pfd.launches)
+    assert [t.data_ptr() for t in leaves] == ptrs, "state moved"
+    toks = sum(len(results[h]) for h in handles)
+    ticks = st["ticks"]
+    assert ticks == len(walls)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    arm = "captured" if captured else "eager"
+    print(f"serve xlstm-350m FULL ({cfg.n_layers} layers), ragged, "
+          f"prefill_chunk {eng.chunk} (roll width {eng.width}), {arm}, on "
+          f"{card}: {len(handles)} requests, {toks} tokens in {wall:.3f} s = "
+          f"{toks / wall:.2f} tokens/s, {ticks} ticks, "
+          f"{1e3 * wall / ticks:.1f} ms/tick (median "
+          f"{1e3 * float(np.median(walls)):.1f}), build"
+          f"{' and capture' if captured else ''} {build_s:.1f} s, state "
+          f"{state_gib:.3f} GiB, "
+          f"peak memory {peak:.2f} GiB; attention-kernel launches 0: no "
+          f"paged layer, nothing to launch")
+    return dict(wall_ms=1e3 * wall, ticks=ticks, tokens=toks, walls=walls,
+                peak_gib=peak, build_s=build_s, profiled=prof,
+                transcripts=[list(results[h]) for h in handles])
+
+
+def xlstm_phase(card: str) -> dict:
+    """Phase 4e: xlstm-350m FULL (24 layers: 21 mLSTM, 3 sLSTM; seed-0
+    weights, bf16 activations) through the ragged engine captured and
+    eager: equal transcripts; then a captured repeat with four ticks
+    profiled (the first two, prefill, and two decode ticks near the end):
+    device busy time, idle share against the unprofiled captured run's
+    same ticks, and the kernels a replay runs."""
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = get_config("xlstm-350m")
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    print(f"xlstm-350m FULL: {param_count(cfg) / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    cap = serve_xlstm(params, cfg, card)
+    gc.collect()
+    eager = serve_xlstm(params, cfg, card, captured=False)
+    gc.collect()
+    assert cap["transcripts"] == eager["transcripts"], \
+        "captured and eager transcripts differ"
+    n = cap["ticks"]
+    picks = (0, 1, n - 3, n - 2)
+    prof = serve_xlstm(params, cfg, card, profile=picks)
+    gc.collect()
+    assert prof["transcripts"] == cap["transcripts"]
+    for i, r in sorted(prof["profiled"].items()):
+        wall = 1e3 * cap["walls"][i]
+        print(f"  tick {i} (captured, profiled) on {card}: device busy "
+              f"{r['busy_ms']:.2f} ms in {r['kernels']} kernels and copies "
+              f"(the graph's kernels a replay); "
+              f"the unprofiled tick {wall:.2f} ms, idle share "
+              f"{1 - r['busy_ms'] / wall:.3f}")
+    for name, r in (("captured", cap), ("eager", eager)):
+        print(f"xlstm-350m ragged, {name} on {card}: "
+              f"{r['wall_ms'] / r['ticks']:.1f} ms per tick, "
+              f"{r['tokens'] / r['wall_ms'] * 1e3:.2f} tokens/s, peak memory "
+              f"{r['peak_gib']:.2f} GiB")
+    print(f"phase 4e: captured transcripts equal the eager ones "
+          f"({cap['tokens']} tokens); captured / eager wall per tick "
+          f"{cap['wall_ms'] / eager['wall_ms']:.3f} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"captured": cap, "eager": eager, "profiled": prof["profiled"]}
+
+
+# ---------------------------------------------------------------------------
 # 5. kernel route against gather route
 
 
@@ -2369,10 +2615,12 @@ FLASH_KERNELS = ("flash_attention_kernel", "flash_wgmma_kernel")
 
 
 def flash_launches_per_step(cfg) -> int:
-    """Flash-kernel launches in one training step: one per layer in the
-    forward pass, and one more per layer when remat recomputes the block in
-    the backward pass (tests/test_torch_train.py holds this on the CPU)."""
-    return cfg.n_layers * (1 if cfg.remat == "none" else 2)
+    """Flash-kernel launches in one training step: one per global attention
+    layer in the forward pass, and one more per such layer when remat
+    recomputes the block in the backward pass; windowed layers take the
+    chunked route, as in JAX (tests/test_torch_train.py and
+    tests/test_torch_global_theta.py hold this on the CPU)."""
+    return global_layers(cfg) * (1 if cfg.remat == "none" else 2)
 
 
 def train_full(card: str, steps: int = 4) -> dict:
@@ -2504,35 +2752,150 @@ def train_full(card: str, steps: int = 4) -> dict:
 # 7. kernel route against chunked route (training)
 
 
-def train_routes(card: str) -> None:
+def train_routes(card: str, arch: str, repeats: int) -> None:
+    """``arch`` at full width in f32, its first stage cut to ``repeats``
+    repeats of its pattern, batch 1, sequence 4096: ``loss_fn`` and every
+    gradient through the flash kernel (``use_flash``) and through the
+    chunked route agree, the loss to rtol 1e-4 and every gradient leaf to
+    atol 1e-3 x its max |g|."""
     from repro_torch.configs import ShapeCfg, Stage, get_config
     from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
 
-    full = get_config("qwen2-1.5b")
+    full = get_config(arch)
     cfg = full.replace(dtype="float32",
-                       stages=(Stage(full.stages[0].pattern, 4),))
+                       stages=(Stage(full.stages[0].pattern, repeats),))
     params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda", for_training=True)
     batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMData(
         cfg, ShapeCfg("route", 4096, 1, "train"), seed=3).batch_at(0).items()}
     leaves = list(params.parameters())
     res = {}
+    fa.reset_launches()
     for flash in (True, False):
         loss, _ = M.loss_fn(params, cfg.replace(use_flash=flash), batch)
         res[flash] = (loss.item(), torch.autograd.grad(loss, leaves))
-    (lf, gf), (lc, gc) = res[True], res[False]
+    per_step = flash_launches_per_step(cfg)
+    assert fa.launches == fa.launches_by_variant["simt"] == per_step, \
+        (fa.launches_by_variant, per_step)  # f32: the simt variant
+    (lf, g_flash), (lc, g_chunked) = res[True], res[False]
     np.testing.assert_allclose(lf, lc, rtol=1e-4)
     worst = 0.0
-    for name, a, b in zip([n for n, _ in params.named_parameters()], gf, gc):
+    for name, a, b in zip([n for n, _ in params.named_parameters()], g_flash,
+                           g_chunked):
         scale = float(b.abs().max())
         torch.testing.assert_close(a, b, rtol=0.0, atol=1e-3 * scale,
                                    msg=lambda m, name=name: f"{name}: {m}")
         worst = max(worst, float((a - b).abs().max()) / max(scale, 1e-30))
-    print(f"training, kernel route vs chunked route, full width f32 "
-          f"(4 layers, seq 4096, batch 1) on {card}: loss {lf:.6f} vs "
-          f"{lc:.6f}; worst gradient leaf max |diff| / max |g| {worst:.3e} "
-          f"over {len(leaves)} leaves")
+    print(f"training, kernel route vs chunked route, {arch} full width f32 "
+          f"({cfg.n_layers} layers, {global_layers(cfg)} through the kernel, "
+          f"seq 4096, batch 1) on {card}: loss {lf:.6f} vs {lc:.6f}; worst "
+          f"gradient leaf max |diff| / max |g| {worst:.3e} over {len(leaves)} "
+          f"leaves; flash launches {fa.launches} (simt)")
+    del params, res, g_flash, g_chunked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# gemma3-4b's training cut: the first 12 layers (10 windowed, 2 global at
+# head_dim 256), sequence 4096, batch 1
+GEMMA_TRAIN_REPEATS, GEMMA_TRAIN_STEPS = 2, 3
+
+
+def train_gemma(card: str) -> dict:
+    """Phase 6b: gemma3-4b at full width (d 2560, 8 query over 4 KV heads,
+    head_dim 256, vocab 262144) cut to its first 12 layers, bf16
+    activations over float32 parameters and moments, remat "full",
+    ``use_flash``: three ``TrainLoop`` steps at sequence 4096, batch 1.
+    Every loss is finite and the flash kernel launches 2 x 2 times a step
+    (the two global layers' forward and recomputation), all "simt"."""
+    from repro_torch.configs import ShapeCfg, Stage, get_config, param_count
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.loop import TrainLoop
+
+    full = get_config("gemma3-4b")
+    cfg = full.replace(use_flash=True, stages=(
+        Stage(full.stages[0].pattern, GEMMA_TRAIN_REPEATS),))
+    assert cfg.n_layers == 12 and global_layers(cfg) == 2
+    steps = GEMMA_TRAIN_STEPS
+    loop = TrainLoop(cfg, ShapeCfg("gemma_train", 4096, 1, "train"), lr=3e-4,
+                     total_steps=steps, device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # count only this path's launches
+    hist = loop.run(steps)
+    per_step = flash_launches_per_step(cfg)
+    assert per_step == 4, per_step
+    assert fa.launches == fa.launches_by_variant["simt"] == per_step * steps, \
+        (fa.launches_by_variant, per_step, steps)
+    assert all(np.isfinite(r["loss"]) for r in hist), hist
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train gemma3-4b FULL width, first {cfg.n_layers} layers "
+          f"({global_layers(cfg)} global at head_dim 256), "
+          f"{param_count(cfg) / 1e9:.3f} B params, seq 4096, batch 1, bf16 "
+          f"activations, f32 params, remat {cfg.remat}, use_flash, on {card}: "
+          f"flash kernel launches {fa.launches} = {per_step} per step x "
+          f"{steps} steps, by variant {dict(fa.launches_by_variant)}; peak "
+          f"memory {peak:.2f} GiB")
+    for r in hist:
+        print(f"  step {r['step']}: loss {r['loss']:.4f}, "
+              f"{1e3 * r['time_s']:.1f} ms, {4096 / r['time_s']:.0f} tokens/s")
+    out = dict(launches=fa.launches, step_ms=[1e3 * r["time_s"] for r in hist],
+               peak_gib=peak)
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# xlstm-350m's training shape: sequence 1024, batch 1
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 1024, 3
+
+
+def train_xlstm(card: str) -> dict:
+    """Phase 6c: xlstm-350m FULL (24 layers, d 1024; seed-0 weights) for
+    three ``TrainLoop`` steps at sequence 1024, batch 1, bf16 activations
+    over float32 parameters and moments, remat "full", no ``use_flash``
+    (no attention).  Every loss is finite, and one more ``loss_fn`` gives
+    every parameter a finite gradient."""
+    from repro_torch.configs import ShapeCfg, get_config, param_count
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import TrainLoop
+
+    cfg = get_config("xlstm-350m")
+    steps = XLSTM_TRAIN_STEPS
+    shape = ShapeCfg("xlstm_train", XLSTM_TRAIN_SEQ, 1, "train")
+    loop = TrainLoop(cfg, shape, lr=3e-4, total_steps=steps, device="cuda",
+                     seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    hist = loop.run(steps)
+    assert all(np.isfinite(r["loss"]) for r in hist), hist
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train xlstm-350m FULL ({cfg.n_layers} layers, "
+          f"{param_count(cfg) / 1e9:.3f} B params), seq {XLSTM_TRAIN_SEQ}, "
+          f"batch 1, bf16 activations, f32 params, remat {cfg.remat}, on "
+          f"{card}: peak memory {peak:.2f} GiB")
+    for r in hist:
+        print(f"  step {r['step']}: loss {r['loss']:.4f}, "
+              f"{1e3 * r['time_s']:.1f} ms, "
+              f"{XLSTM_TRAIN_SEQ / r['time_s']:.0f} tokens/s")
+    params = loop.final_state["params"]
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in loop.data.batch_at(steps).items()}
+    leaves = list(params.parameters())
+    loss, _ = M.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    names = [n for n, _ in params.named_parameters()]
+    missing = [nm for nm, g in zip(names, grads) if g is None]
+    assert not missing, f"no gradient reached {missing}"
+    bad = [nm for nm, g in zip(names, grads) if not bool(torch.isfinite(g).all())]
+    assert not bad, f"non-finite gradients in {bad}"
+    print(f"  gradients reach all {len(leaves)} parameter leaves, all finite")
+    out = dict(step_ms=[1e3 * r["time_s"] for r in hist], peak_gib=peak)
+    del loop, params, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2579,7 +2942,8 @@ def main() -> int:
     check_gemma3_kernels(card)
     phase_done("phase 3")
 
-    cfg = get_config("qwen2-1.5b")  # FULL, bf16 activations
+    full = get_config("qwen2-1.5b")  # full width, bf16 activations
+    cfg = cut_depth(full, SERVE_LAYERS)
     params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda")
     # the main path: the captured ragged engine, bf16 pools, whose first
@@ -2589,16 +2953,15 @@ def main() -> int:
     assert launches > 0, "the serving path never launched the kernel"
     serving[(True, "int8")] = serve_arms(params, cfg, "int8", card, ragged=True)
     del params
-    # the two-phase path at half depth, to keep the whole run within its
-    # time (PERF.md)
-    half = cfg.replace(stages=(Stage(cfg.stages[0].pattern, TWO_PHASE_LAYERS),))
-    params = M.init_params(half, generator=torch.Generator("cuda").manual_seed(0),
+    two_cfg = cut_depth(full, TWO_PHASE_LAYERS)
+    params = M.init_params(two_cfg,
+                           generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda")
-    two = serve_arms(params, half, None, card, ragged=False)["captured"]
+    two = serve_arms(params, two_cfg, None, card, ragged=False)["captured"]
     decode_launches = two["launches"]
-    assert decode_launches == half.n_layers * two["decode_ticks"] > 0, \
+    assert decode_launches == two_cfg.n_layers * two["decode_ticks"] > 0, \
         (decode_launches, two)
-    serve_arms(params, half, "int8", card, ragged=False)
+    serve_arms(params, two_cfg, "int8", card, ragged=False)
     del params
     torch.cuda.empty_cache()
     phase_done("phase 4")
@@ -2608,8 +2971,10 @@ def main() -> int:
     phase_done("phase 4c")
     gemma_phase(card)
     phase_done("phase 4d")
+    xlstm_phase(card)
+    phase_done("phase 4e")
 
-    cfg32 = cfg.replace(dtype="float32")
+    cfg32 = full.replace(dtype="float32")
     p32 = M.init_params(cfg32, generator=torch.Generator("cuda").manual_seed(0),
                         device="cuda")
     lf, lg = route_logits(p32, cfg32, (True, False), B=8, T=256,
@@ -2648,8 +3013,12 @@ def main() -> int:
     tres = train_full(card)
     torch.cuda.empty_cache()
     phase_done("phase 6")
-    train_routes(card)
-    torch.cuda.empty_cache()
+    train_gemma(card)
+    phase_done("phase 6b")
+    train_xlstm(card)
+    phase_done("phase 6c")
+    train_routes(card, "qwen2-1.5b", 4)
+    train_routes(card, "gemma3-4b", GEMMA_TRAIN_REPEATS)
     phase_done("phase 7")
     sweep_launches = sweep_phase(card)
     phase_done("phase 8")

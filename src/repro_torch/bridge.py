@@ -8,8 +8,10 @@ and hand them here, so this module never sees JAX.
   ``repro.models.model.init_params``.  Stages keep the stacked leading layer
   axis (a ``repeats == 1`` stage, unstacked in JAX, gains a layer axis of
   1); in the serving layout matrices, biases and the embedding are cast to
-  the activation dtype and norm scales stay float32; in the training layout
+  the activation dtype and norm scales and the xLSTM gates stay float32
+  (``transformer.leaf_dtype``); in the training layout
   (``for_training=True``) every leaf is in the parameter dtype, with grads.
+  Nested groups (the mLSTM's ``out_norm``) stay nested.
   An untied config's ``head.out_head`` (d, V) is a matrix like the others.
 - ``params_to_numpy`` / ``grads_to_numpy`` lay a ``Model``'s parameters,
   or a list of tensors in ``Model.parameters()`` order (gradients, AdamW
@@ -17,9 +19,10 @@ and hand them here, so this module never sees JAX.
 - ``state_from_numpy`` / ``state_to_numpy`` convert a decode state both
   ways, with the same layer-axis rule, leaf dtypes unchanged: the paged
   serving state ({"layers": [[{kp, vp, [ks, vs], ptab, kpos, slen} or,
-  for a windowed layer, {k, v, kpos, slen}]]}) and the lock-step state
-  ({"layers": [[{k, v, k_pos, pos}]], "pos"}), whose top-level "pos" is a
-  0-d scalar on both sides.
+  for a windowed layer, {k, v, kpos, slen}; for an mLSTM layer {C, n, m,
+  conv}, for an sLSTM layer {sh, sc, sn, sm}]]}) and the lock-step state
+  ({"layers": [[{k, v, k_pos, pos} or a recurrent layer's]], "pos"}),
+  whose top-level "pos" is a 0-d scalar on both sides.
 """
 from __future__ import annotations
 
@@ -31,6 +34,12 @@ import torch
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
+
+
+def _map(tree: Dict, fn) -> Dict:
+    """``fn`` over the leaves of a nested dict."""
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def _tensor(a, dtype=None, device=None) -> torch.Tensor:
@@ -51,13 +60,13 @@ def params_from_numpy(tree: Dict, cfg: ModelCfg, device,
     norm_dt = dt if for_training else torch.float32
     stages = []
     for st, sp in zip(cfg.stages, tree["stages"]):
-        blocks = sp if st.repeats > 1 else [
-            {g: {k: np.asarray(v)[None] for k, v in leaves.items()}
-             for g, leaves in bp.items()} for bp in sp]
+        def leaf(a, stacked=st.repeats > 1):
+            a = np.asarray(a)
+            return _tensor(a if stacked else a[None], device=device)
+
         stages.append([tfm.Block({
-            g: {k: _tensor(v, norm_dt if g.endswith("norm") else dt, device)
-                for k, v in leaves.items()}
-            for g, leaves in bp.items()}, for_training) for bp in blocks])
+            g: tfm.cast_leaves(_map(leaves, leaf), dt, for_training, (g,))
+            for g, leaves in bp.items()}, for_training) for bp in sp])
     head = tree.get("head")
     return M.Model(_tensor(tree["embed"]["tok_embed"], dt, device), stages,
                    _tensor(tree["final_norm"]["scale"], norm_dt, device),
@@ -81,10 +90,12 @@ def grads_to_numpy(params: M.Model, tensors: Sequence[torch.Tensor],
     for name, t in zip(names, tensors):
         path = name.split(".")
         if path[0] == "stages":
-            s, i, group, leaf = int(path[1]), int(path[2]), path[3], path[4]
+            s, i, groups, leaf = int(path[1]), int(path[2]), path[3:-1], path[-1]
             a = _numpy(t)
-            out["stages"][s][i].setdefault(group, {})[leaf] = (
-                a if cfg.stages[s].repeats > 1 else a[0])
+            node = out["stages"][s][i]
+            for g in groups:  # nested groups: the mLSTM's out_norm
+                node = node.setdefault(g, {})
+            node[leaf] = a if cfg.stages[s].repeats > 1 else a[0]
         else:
             out.setdefault(path[0], {})[path[1]] = _numpy(t)
     return out

@@ -46,15 +46,18 @@
 // next tile's QK^T, 128-key tiles with setmaxnreg, a TMA store of O.
 //
 // "simt" (float32, the parity route, and any other hd, a multiple of 8 up
-// to 128; TF32 would change the float32 result): one 256-thread block per
+// to 256; TF32 would change the float32 result): one 256-thread block per
 // (bh, 64-row query tile), heaviest first.  The TPU grid's sequential K axis
 // becomes a loop inside the block over the 64-row K/V tiles up to the
 // diagonal.  q, K and V tiles are staged in shared memory as float32 with
-// 16-byte global loads (K and V share one buffer, so two blocks fit on an
-// SM); each thread computes a 4 x 4 score tile and a 4 x 8 slice of the
-// 64 x hd accumulator with float32 FMAs, and keeps its rows' m and l in
-// registers (the 16 threads of a row reduce with shuffles).  Its ceiling is
-// the card's 67 TFLOP/s of float32 FMA.
+// 16-byte global loads (K and V share one buffer); each thread computes a
+// 4 x 4 score tile and a 4 x (4 NC) slice of the 64 x hd accumulator with
+// float32 FMAs — NC = ceil(hd / 64) groups of 4 columns, at 4 tx + 64 g —
+// and keeps its rows' m and l in registers (the 16 threads of a row reduce
+// with shuffles).  The kernel is instantiated for NC = 1..4: up to hd 128
+// two blocks fit on an SM (at hd 128, 84,992 B of shared memory each); at
+// hd 256 one block takes 150,528 B, so those instantiations are bound for
+// one block an SM.  Its ceiling is the card's 67 TFLOP/s of float32 FMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +76,7 @@ enum Variant { kSimt = 0, kWgmma = 1 };
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kMaxHd = 128;    // 16 threads x 4 columns x 2
+constexpr int kMaxHd = 256;    // 16 threads x 4 columns x 4 groups
 constexpr int kPad = 4;        // floats of padding per shared-memory row
 constexpr int kLdP = kBK + kPad;
 constexpr float kNegInf = -1e30f;  // the JAX kernel's NEG_INF
@@ -148,9 +151,10 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // q, out: (BH, S, hd); k, v: (BKV, S, hd); all contiguous and 16-byte
-// aligned, hd a multiple of 8 and at most 128.  window <= 0 means none.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
+// aligned, hd a multiple of 8 with ceil(hd / 64) == NC.  window <= 0 means
+// none.  Up to hd 128 two blocks share an SM, past it one.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads, NC <= 2 ? 2 : 1) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int S, int hd, int G, int window, float scale) {
   extern __shared__ float smem[];
@@ -170,15 +174,18 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
 
   load_tile(qb, q_s, q0, S, hd, scale);
 
-  float m[4], l[4], acc[4][8];
+  // acc[i][4 g + e]: row ty + 16 i, column 4 tx + 64 g + e
+  float m[4], l[4], acc[4][4 * NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < 4 * NC; ++e) acc[i][e] = 0.f;
   }
-  const bool col0 = 4 * tx < hd, col1 = 4 * tx + 64 < hd;
+  bool col_ok[NC];  // this thread's column group g lies inside hd
+#pragma unroll
+  for (int g = 0; g < NC; ++g) col_ok[g] = 4 * tx + 64 * g < hd;
   const int k_last = min(q0 + kBQ - 1, S - 1);  // last key any row here sees
 
   for (int k0 = 0; k0 <= k_last; k0 += kBK) {
@@ -245,22 +252,24 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= corr[i];
+      for (int e = 0; e < 4 * NC; ++e) acc[i][e] *= corr[i];
     for (int r = 0; r < kBK; ++r) {
-      float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f), v1 = v0;
-      if (col0) v0 = *reinterpret_cast<const float4*>(kv_s + r * ld + 4 * tx);
-      if (col1) v1 = *reinterpret_cast<const float4*>(kv_s + r * ld + 4 * tx + 64);
+      float4 vv[NC];
+#pragma unroll
+      for (int g = 0; g < NC; ++g) {
+        vv[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (col_ok[g]) vv[g] = *reinterpret_cast<const float4*>(kv_s + r * ld + 4 * tx + 64 * g);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = p_s[(ty + 16 * i) * kLdP + r];
-        acc[i][0] = fmaf(p, v0.x, acc[i][0]);
-        acc[i][1] = fmaf(p, v0.y, acc[i][1]);
-        acc[i][2] = fmaf(p, v0.z, acc[i][2]);
-        acc[i][3] = fmaf(p, v0.w, acc[i][3]);
-        acc[i][4] = fmaf(p, v1.x, acc[i][4]);
-        acc[i][5] = fmaf(p, v1.y, acc[i][5]);
-        acc[i][6] = fmaf(p, v1.z, acc[i][6]);
-        acc[i][7] = fmaf(p, v1.w, acc[i][7]);
+#pragma unroll
+        for (int g = 0; g < NC; ++g) {
+          acc[i][4 * g + 0] = fmaf(p, vv[g].x, acc[i][4 * g + 0]);
+          acc[i][4 * g + 1] = fmaf(p, vv[g].y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(p, vv[g].z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(p, vv[g].w, acc[i][4 * g + 3]);
+        }
       }
     }
   }
@@ -271,18 +280,19 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float o[8];
+    float o[4 * NC];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = acc[i][e] / den;
-    if (col0) store4(ob + (size_t)row * hd + 4 * tx, o);
-    if (col1) store4(ob + (size_t)row * hd + 4 * tx + 64, o + 4);
+    for (int e = 0; e < 4 * NC; ++e) o[e] = acc[i][e] / den;
+#pragma unroll
+    for (int g = 0; g < NC; ++g)
+      if (col_ok[g]) store4(ob + (size_t)row * hd + 4 * tx + 64 * g, o + 4 * g);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int BH, int S,
-                   int hd, int G, int window, float scale, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T>;
+template <typename T, int NC>
+cudaError_t launch_nc(const void* q, const void* k, const void* v, void* out, int BH, int S,
+                      int hd, int G, int window, float scale, cudaStream_t stream) {
+  auto kern = flash_attention_kernel<T, NC>;
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * (hd + kPad) + (size_t)kBQ * kLdP);
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -292,6 +302,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
                                          static_cast<const T*>(v), static_cast<T*>(out), S,
                                          hd, G, window, scale);
   return cudaGetLastError();
+}
+
+// The "simt" kernel instantiated for the hd's number of 64-column groups.
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int BH, int S,
+                   int hd, int G, int window, float scale, cudaStream_t stream) {
+  switch ((hd + 63) / 64) {
+    case 1: return launch_nc<T, 1>(q, k, v, out, BH, S, hd, G, window, scale, stream);
+    case 2: return launch_nc<T, 2>(q, k, v, out, BH, S, hd, G, window, scale, stream);
+    case 3: return launch_nc<T, 3>(q, k, v, out, BH, S, hd, G, window, scale, stream);
+    case 4: return launch_nc<T, 4>(q, k, v, out, BH, S, hd, G, window, scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 
@@ -509,7 +532,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// variant: a Variant (wgmma: bf16 with hd 64 or 128 only).  dtype: 0
+// variant: a Variant (wgmma: bf16 with hd 64 or 128 only; simt: any hd, a
+// multiple of 8 up to 256).  dtype: 0
 // float32, 1 bfloat16 (q, k, v and out share it).  window <= 0 means none.
 // Returns the cudaError_t of the launch.
 extern "C" int flash_attention(int variant, int dtype, const void* q, const void* k,

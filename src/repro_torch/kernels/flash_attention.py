@@ -8,7 +8,8 @@ kernel).  ``flash_attention`` launches the hand-written kernel in
 to the other.  The kernel has two variants, chosen by ``flash_variant`` from
 the dtype and head_dim alone: "wgmma" (tensor cores, TMA) for bfloat16 at
 head_dim 64 or 128, "simt" (float32 FMA) for float32 — the parity route,
-where TF32 would change the result — and for any other head_dim.
+where TF32 would change the result — and for any other head_dim, a
+multiple of 8 up to 256 (gemma3-4b's global layers run it at 256).
 ``launches`` counts kernel launches (the plain version does not count), and
 ``launches_by_variant`` splits them by variant, so a run can show that its
 attention went through the kernel it expected.
@@ -29,7 +30,7 @@ VARIANTS = ("simt", "wgmma")
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 
 
 def reset_launches() -> None:

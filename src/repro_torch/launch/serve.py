@@ -12,6 +12,7 @@ flags, no priorities, no stats line), the A/B baseline of the other two.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --engine reference --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --engine chunked --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --engine chunked --flash-decode
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --scheduler slo --interactive-every 3
 """

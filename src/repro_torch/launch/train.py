@@ -6,6 +6,7 @@ the config's ``use_flash``: attention through the flash-attention kernel).
 ``train/checkpoint.py`` and ``optim/quantized_state.py`` are ported.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --smoke --device cpu --steps 3
 """
 import argparse
 

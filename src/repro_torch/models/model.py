@@ -20,9 +20,10 @@ The serving state is a plain pytree of tensors ({"layers": [[cache per
 pattern position] per stage]}) that every serving function here updates in
 place; the lock-step decode state adds a top-level scalar "pos".
 
-Supported: decoder token models whose every block is attention — global,
-or windowed (sliding-window, as gemma3's local layers) — with a dense FFN,
-with a tied or an untied output head (``head.out_head``, (d, V), as JAX's
+Supported: decoder token models whose blocks are attention — global, or
+windowed (sliding-window, as gemma3's local layers) — or xLSTM mixers
+(mLSTM, sLSTM: xlstm-350m), each with a dense FFN or none, with a tied or
+an untied output head (``head.out_head``, (d, V), as JAX's
 ``{"head": {"out_head"}}``).  Everything else raises
 ``NotImplementedError``.
 """
@@ -228,14 +229,25 @@ def ragged_step(params: Model, cfg: ModelCfg, state, tokens, slot, q_pos,
     return logits.reshape(logit_idx.shape + logits.shape[-1:]), state
 
 
+def reset_template(state) -> Dict:
+    """The reset template of a serving state: the fresh value of each
+    per-slot leaf that an admission restores, as a number
+    (``transformer.FRESH_VALUES``: a windowed layer's k/v buffers and the
+    recurrent states), laid out like ``state``'s layers."""
+    return {"layers": [[{k: tfm.FRESH_VALUES[k] for k in c
+                         if k in tfm.FRESH_VALUES} for c in ss]
+                       for ss in state["layers"]]}
+
+
 def reset_paged_slots(cfg: ModelCfg, state, init_state, mask, ptab_rows,
                       prefix_len) -> Dict:
     """Admission, in place: for slots where ``mask`` is set, install the
     host-allocated block-table rows, make the ``prefix_len`` inherited
-    prefix positions live, and fill a windowed layer's k/v buffers with
-    their fresh value, which ``init_state`` holds as a number per leaf
-    ({"layers": [[{"k": 0, "v": 0} or {}]]}).  Pools are shared and
-    untouched — they double as the prefix cache."""
+    prefix positions live, and fill a windowed layer's k/v buffers and a
+    recurrent layer's states with their fresh values, which ``init_state``
+    holds as a number per leaf (``reset_template``; {"layers": [[{}]]}
+    where every layer is global).  Pools are shared and untouched — they
+    double as the prefix cache."""
     for st, ss, is0 in zip(cfg.stages, state["layers"], init_state["layers"]):
         tfm.reset_stage_slots(st, ss, is0, mask, ptab_rows, prefix_len)
     return state
@@ -336,9 +348,11 @@ def decode_step(params: Model, cfg: ModelCfg, state, tokens_t, *,
 @torch.no_grad()
 def prefill(params: Model, cfg: ModelCfg, state, tokens) -> Dict:
     """Teacher-forced prompt ingestion into a lock-step state, in place:
-    tokens (B, S).  Each layer runs the full-sequence attention (the
-    chunked route, never flash, as in JAX) for the hidden states and writes
-    its cache (``attention.prefill_cache``); every "pos" becomes S."""
+    tokens (B, S).  Each attention layer runs the full-sequence attention
+    (the chunked route, never flash, as in JAX) for the hidden states and
+    writes its cache (``attention.prefill_cache``); a recurrent layer rolls
+    its state over the prompt (``_roll_recurrent``); every "pos" becomes
+    S."""
     dt = getattr(torch, cfg.dtype)
     x = emb.embed_tokens(params.embed, tokens.long(), dt)
     S = tokens.shape[1]
@@ -351,18 +365,35 @@ def prefill(params: Model, cfg: ModelCfg, state, tokens) -> Dict:
 
 def _stage_prefill(params, cfg: ModelCfg, stage, x, states, positions):
     """One stage of ``prefill``: the layer loop of ``stage_step_ragged``,
-    each layer's output from ``attention_fwd`` and its cache from
-    ``prefill_cache``."""
+    each attention layer's output from ``attention_fwd`` and its cache from
+    ``prefill_cache``, each recurrent layer's from ``_roll_recurrent``."""
     for r in range(stage.repeats):
         for i, blk in enumerate(stage.pattern):
             tfm.check_block(blk)
             bp, cache = tfm.layer_view(params[i], r), tfm.layer_view(states[i], r)
             h = rmsnorm(bp["mixer_norm"], x, cfg.norm_eps)
-            x = x + attn.attention_fwd(bp["mixer"], blk.attn, h,
-                                       positions=positions,
-                                       q_chunk=cfg.attn_q_chunk)
-            attn.prefill_cache(bp["mixer"], blk.attn, cache, h, positions)
+            if blk.mixer in tfm.RECURRENT_MIXERS:
+                x = x + _roll_recurrent(blk, bp["mixer"], h, cache)
+            else:
+                x = x + attn.attention_fwd(bp["mixer"], blk.attn, h,
+                                           positions=positions,
+                                           q_chunk=cfg.attn_q_chunk)
+                attn.prefill_cache(bp["mixer"], blk.attn, cache, h, positions)
             if blk.ffn is not None:
                 h = rmsnorm(bp["ffn_norm"], x, cfg.norm_eps)
                 x = x + mlp_fwd(bp["ffn"], blk.mlp, h)
     return x
+
+
+def _roll_recurrent(blk, p, h, state):
+    """Prefill a recurrent mixer (JAX ``_roll_recurrent``): the outputs
+    from the parallel form, the state from the single-step decode rolled
+    over every position of h (B, S, D), written into ``state`` (one
+    layer's views) in place.  Returns the outputs."""
+    out = tfm.RECURRENT_FWD[blk.mixer](p, blk.xlstm, h)
+    cur = dict(state)
+    for t in range(h.shape[1]):
+        _, cur = tfm.RECURRENT_DECODE[blk.mixer](p, blk.xlstm, h[:, t:t + 1],
+                                                 cur)
+    tfm.store_state(state, cur)
+    return out

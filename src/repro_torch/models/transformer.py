@@ -9,10 +9,13 @@ views.  The views share storage with the stacked tensors, so the in-place
 cache writes of each layer land in the stacked state, and the gradients of
 the training forward land in the stacked parameters.
 
-Attention blocks (global or windowed) with a dense FFN are ported; mamba,
-xLSTM and MoE mixers raise ``NotImplementedError``.  A stage's layer loop
-runs repeat r over every pattern position before repeat r + 1, JAX's scan
-order.
+Attention blocks (global or windowed) and the xLSTM mixers (mLSTM, sLSTM),
+each with or without a dense FFN, are ported; mamba mixers, cross-attention
+and MoE FFNs raise ``NotImplementedError``.  A stage's layer loop runs
+repeat r over every pattern position before repeat r + 1, JAX's scan order.
+A recurrent mixer's serving and decode state is advanced functionally, one
+step at a time, and written back into its layer's views once the step's
+roll is done.
 """
 from __future__ import annotations
 
@@ -24,13 +27,26 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import BlockCfg, ModelCfg, Stage
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import attention as attn
+from repro_torch.models.layers import xlstm
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.mlp import mlp_fwd
 from repro_torch.models.layers.norms import rmsnorm
 
 # per-slot pool leaves shared by every slot: survive slot resets
 POOL_LEAVES = ("kp", "vp", "ks", "vs")
+
+# the fresh value of every per-slot leaf that an admission restores from
+# the reset template: a windowed layer's buffers and the recurrent states
+# (the sLSTM stabilizer starts at -1e30, everything else at 0)
+FRESH_VALUES = {"k": 0.0, "v": 0.0, "C": 0.0, "n": 0.0, "m": 0.0,
+                "conv": 0.0, "sh": 0.0, "sc": 0.0, "sn": 0.0, "sm": xlstm.NEG}
+
+# the recurrent mixers: their training forward and single-step decode
+RECURRENT_FWD = {"mlstm": xlstm.mlstm_fwd, "slstm": xlstm.slstm_fwd}
+RECURRENT_DECODE = {"mlstm": xlstm.mlstm_decode, "slstm": xlstm.slstm_decode}
+RECURRENT_MIXERS = tuple(RECURRENT_FWD)
 
 # MoE auxiliary losses; always zero in the ported slices (no MoE FFN yet)
 ZERO_AUX = {"moe_lb_loss": torch.zeros(()), "moe_z_loss": torch.zeros(())}
@@ -41,60 +57,97 @@ def _add_aux(a, b):
 
 
 def check_block(blk: BlockCfg) -> None:
-    """Raise for blocks outside the ported slice."""
-    if blk.mixer != "attn":
+    """Raise for blocks outside the ported slices."""
+    if blk.mixer == "attn":
+        attn.check_attn(blk.attn)
+    elif blk.mixer not in RECURRENT_MIXERS:
         raise NotImplementedError(
-            f"mixer {blk.mixer!r} is not ported yet: mamba/xLSTM mixers and "
-            "cross-attention come with the hybrid-mixer slice")
-    attn.check_attn(blk.attn)
+            f"mixer {blk.mixer!r} is not ported yet: mamba mixers and "
+            "cross-attention come with later slices")
     if blk.ffn == "moe":
         raise NotImplementedError(
             "MoE FFNs are not ported yet: they come with the hybrid-mixer slice")
 
 
+def _param_dict(leaves: Dict, trainable: bool) -> nn.ParameterDict:
+    """A (possibly nested) dict of tensors as a ``ParameterDict``: a nested
+    dict (the mLSTM's ``out_norm``) becomes a nested ``ParameterDict``, so
+    its leaf is named ``mixer.out_norm.scale`` as JAX's path reads."""
+    return nn.ParameterDict(
+        {k: (_param_dict(v, trainable) if isinstance(v, dict)
+             else nn.Parameter(v, requires_grad=trainable))
+         for k, v in leaves.items()})
+
+
+def leaf_dtype(groups, name: str, dtype, trainable: bool) -> torch.dtype:
+    """The stored dtype of parameter ``name`` under the group path
+    ``groups`` (e.g. ("mixer", "out_norm")).  The training layout stores
+    every leaf in ``dtype``, the parameter dtype.  The serving layout
+    stores them in ``dtype``, the activation dtype, except where JAX
+    computes in float32 whatever the activation dtype: norm scales and the
+    xLSTM gates' weights and biases (``xlstm.FLOAT32_LEAVES``)."""
+    if trainable:
+        return dtype
+    if groups[-1].endswith("norm") or name in xlstm.FLOAT32_LEAVES:
+        return torch.float32
+    return dtype
+
+
+def cast_leaves(leaves: Dict, dtype, trainable: bool, groups=()) -> Dict:
+    """``leaves`` (a group's, possibly nested) cast by ``leaf_dtype``."""
+    return {k: (cast_leaves(v, dtype, trainable, groups + (k,))
+                if isinstance(v, dict)
+                else v.to(leaf_dtype(groups, k, dtype, trainable)))
+            for k, v in leaves.items()}
+
+
 class Block(nn.Module):
     """One pattern position of a stage, its leaves stacked over the stage's
     repeats.  Parameter names follow the JAX pytree: ``mixer_norm.scale``,
-    ``mixer.{wq,wk,wv,wo,bq,bk,bv}``, ``ffn_norm.scale``,
+    ``mixer.{wq,wk,wv,wo,bq,bk,bv}`` (attention) or the xLSTM mixers'
+    leaves (``mixer.out_norm.scale`` nested), ``ffn_norm.scale``,
     ``ffn.{w_up,w_gate,w_down}``.  ``trainable`` sets ``requires_grad``."""
 
     def __init__(self, tensors: Dict[str, Dict[str, torch.Tensor]],
                  trainable: bool = False):
         super().__init__()
         for group, leaves in tensors.items():
-            setattr(self, group, nn.ParameterDict(
-                {k: nn.Parameter(v, requires_grad=trainable)
-                 for k, v in leaves.items()}))
+            setattr(self, group, _param_dict(leaves, trainable))
 
 
 def init_block(generator, cfg: ModelCfg, blk: BlockCfg, repeats: int, *,
                dtype, device, trainable: bool = False) -> Block:
     """Random block weights, stacked over ``repeats``: float32 truncated
-    normals cast once to ``dtype``; norm scales (ones) and zero biases as in
-    JAX.  Serving (``dtype`` the activation dtype) keeps the scales float32;
+    normals, norm scales (ones), zero biases (the xLSTM forget gates' 3.0)
+    as in JAX, each cast once by ``leaf_dtype``: serving (``dtype`` the
+    activation dtype) keeps the scales and the xLSTM gates float32;
     ``trainable`` (``dtype`` the parameter dtype) stores every leaf in
     ``dtype``, with gradients."""
     check_block(blk)
-    d, a, m = cfg.d_model, blk.attn, blk.mlp
-    kvH, hd = a.num_kv_heads, a.head_dim
-    G = a.num_heads // kvH
+    d, m = cfg.d_model, blk.mlp
     L = (repeats,)
 
     def dense(shape, fan_in=None):
-        w = dense_init(generator, L + shape, fan_in or shape[0], device=device)
-        return w.to(dtype)
+        return dense_init(generator, L + shape, fan_in or shape[0], device=device)
 
     def zeros(shape):
-        return torch.zeros(L + shape, dtype=dtype, device=device)
+        return torch.zeros(L + shape, dtype=torch.float32, device=device)
 
-    mixer = {"wq": dense((d, kvH, G, hd)), "wk": dense((d, kvH, hd)),
-             "wv": dense((d, kvH, hd)),
-             "wo": dense((kvH, G, hd, d), kvH * G * hd)}
-    if a.qkv_bias:
-        mixer.update(bq=zeros((kvH, G, hd)), bk=zeros((kvH, hd)),
-                     bv=zeros((kvH, hd)))
-    scale_dt = dtype if trainable else torch.float32
-    ones = lambda: torch.ones(L + (d,), dtype=scale_dt, device=device)  # noqa: E731
+    if blk.mixer == "mlstm":
+        mixer = xlstm.init_mlstm(generator, d, blk.xlstm, repeats, device=device)
+    elif blk.mixer == "slstm":
+        mixer = xlstm.init_slstm(generator, d, blk.xlstm, repeats, device=device)
+    else:
+        a = blk.attn
+        kvH, hd = a.num_kv_heads, a.head_dim
+        G = a.num_heads // kvH
+        mixer = {"wq": dense((d, kvH, G, hd)), "wk": dense((d, kvH, hd)),
+                 "wv": dense((d, kvH, hd)),
+                 "wo": dense((kvH, G, hd, d), kvH * G * hd)}
+        if a.qkv_bias:
+            mixer.update(bq=zeros((kvH, G, hd)), bk=zeros((kvH, hd)),
+                         bv=zeros((kvH, hd)))
+    ones = lambda: torch.ones(L + (d,), device=device)  # noqa: E731
     tensors = {"mixer_norm": {"scale": ones()}, "mixer": mixer}
     if blk.ffn == "mlp":
         ffn = {"w_up": dense((d, m.d_ff)),
@@ -102,16 +155,28 @@ def init_block(generator, cfg: ModelCfg, blk: BlockCfg, repeats: int, *,
         if m.gated:
             ffn["w_gate"] = dense((d, m.d_ff))
         tensors.update(ffn_norm={"scale": ones()}, ffn=ffn)
-    return Block(tensors, trainable)
+    return Block({g: cast_leaves(leaves, dtype, trainable, (g,))
+                  for g, leaves in tensors.items()}, trainable)
+
+
+def _view(group, r: int) -> Dict:
+    return {k: (_view(v, r) if isinstance(v, nn.ParameterDict) else v[r])
+            for k, v in group.items()}
 
 
 def layer_view(tree, r: int):
-    """Layer ``r`` of a stacked block: {group: {leaf: tensor[r]}} for a
-    ``Block``, {leaf: tensor[r]} for a state dict.  Views, not copies."""
+    """Layer ``r`` of a stacked block: {group: {leaf: tensor[r]}} (nested
+    groups nested) for a ``Block``, {leaf: tensor[r]} for a state dict.
+    Views, not copies."""
     if isinstance(tree, nn.Module):
-        return {name: {k: v[r] for k, v in group.items()}
-                for name, group in tree.named_children()}
+        return {name: _view(group, r) for name, group in tree.named_children()}
     return {k: v[r] for k, v in tree.items()}
+
+
+def _unbind(group, repeats: int) -> List[Dict]:
+    cols = {k: (_unbind(v, repeats) if isinstance(v, nn.ParameterDict)
+                else v.unbind(0)) for k, v in group.items()}
+    return [{k: c[r] for k, c in cols.items()} for r in range(repeats)]
 
 
 def _layers(block: Block, repeats: int) -> List[Dict]:
@@ -121,9 +186,8 @@ def _layers(block: Block, repeats: int) -> List[Dict]:
     per layer)."""
     views = [{} for _ in range(repeats)]
     for name, group in block.named_children():
-        cols = {k: v.unbind(0) for k, v in group.items()}
-        for r in range(repeats):
-            views[r][name] = {k: c[r] for k, c in cols.items()}
+        for r, view in enumerate(_unbind(group, repeats)):
+            views[r][name] = view
     return views
 
 
@@ -137,10 +201,14 @@ def block_fwd(params, cfg: ModelCfg, blk: BlockCfg, x, *, positions=None,
     ``ZERO_AUX``'s structure."""
     check_block(blk)
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
-    x = x + attn.attention_fwd(params["mixer"], blk.attn, h,
+    if blk.mixer in RECURRENT_MIXERS:
+        m = RECURRENT_FWD[blk.mixer](params["mixer"], blk.xlstm, h)
+    else:
+        m = attn.attention_fwd(params["mixer"], blk.attn, h,
                                positions=positions, enc=enc,
                                q_chunk=cfg.attn_q_chunk,
                                use_flash=cfg.use_flash)
+    x = x + m
     if blk.ffn is not None:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
         x = x + mlp_fwd(params["ffn"], blk.mlp, h)
@@ -206,16 +274,29 @@ def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,
 # Serving steps
 
 
+def _init_recurrent_state(cfg: ModelCfg, blk: BlockCfg, batch: int, dtype,
+                          layers: int, device):
+    init = (xlstm.init_mlstm_state if blk.mixer == "mlstm"
+            else xlstm.init_slstm_state)
+    return init(blk.xlstm, cfg.d_model, batch, dtype, layers=layers,
+                device=device)
+
+
 def init_stage_state_paged(cfg: ModelCfg, stage: Stage, batch: int,
                            cache_len: int, dtype, *, page_size: int,
                            n_pages: int, window_extra: int = 0,
                            kv_dtype=None, device=None):
     """One serving cache per pattern position (paged for global layers,
     per-slot circular buffers ``window_extra`` entries past the window for
-    windowed ones), stacked over the repeats."""
+    windowed ones, per-slot recurrent states for xLSTM mixers), stacked
+    over the repeats."""
     out = []
     for blk in stage.pattern:
         check_block(blk)
+        if blk.mixer in RECURRENT_MIXERS:
+            out.append(_init_recurrent_state(cfg, blk, batch, dtype,
+                                             stage.repeats, device))
+            continue
         out.append(attn.init_paged_cache(
             blk.attn, batch, cache_len, dtype, page_size=page_size,
             n_pages=n_pages, window_extra=window_extra, kv_dtype=kv_dtype,
@@ -223,17 +304,69 @@ def init_stage_state_paged(cfg: ModelCfg, stage: Stage, batch: int,
     return out
 
 
+def store_state(state: Dict, new: Dict) -> None:
+    """Write a recurrent layer's new state into its views, in place."""
+    for name, leaf in state.items():
+        leaf.copy_(new[name])
+
+
+def _masked_recurrent_roll(blk: BlockCfg, p, h, s, valid):
+    """JAX ``_masked_recurrent_roll``: the single-step decode of ``blk``'s
+    mixer over the C positions of h (B, C, D), each slot's state advancing
+    only where ``valid`` (B, C) is set — pad tails and idle slots keep
+    their state bit-identical.  The loop replaces JAX's scan; ``s`` (one
+    layer's views) is written once, after the last step.  Returns the
+    outputs (B, C, D)."""
+    dec = RECURRENT_DECODE[blk.mixer]
+    cur = dict(s)
+    ys = []
+    for t in range(h.shape[1]):
+        y, new = dec(p, blk.xlstm, h[:, t:t + 1], cur)
+        v = valid[:, t]
+        cur = {k: torch.where(v.reshape((-1,) + (1,) * (a.ndim - 1)), a, cur[k])
+               for k, a in new.items()}
+        ys.append(y[:, 0])
+    store_state(s, cur)
+    return torch.stack(ys, dim=1)
+
+
+def _ragged_recurrent_roll(blk: BlockCfg, p, h, s, slot, seq_idx, valid,
+                           width: int):
+    """JAX ``_ragged_recurrent_roll``: the pack's tokens scattered by (slot,
+    intra-slot ordinal) into a dense (B, width) layout, the masked roll
+    over it, the outputs gathered back by the same indices.  The scheduler
+    packs at most ``width`` tokens a slot, in position order.  JAX's
+    ``mode="drop"`` scatter (invalid entries aim at column ``width``)
+    becomes the shape-static ``kops.scatter_live``.  h: (1, T, D);
+    slot/seq_idx/valid: (T,).  Returns (1, T, D); invalid rows are junk."""
+    B = next(iter(s.values())).shape[0]
+    h0 = h[0]
+    col = torch.where(valid, seq_idx, width).long()
+    slot = slot.long()
+    live = (col >= 0) & (col < width) & (slot >= 0) & (slot < B)
+    dense = h0.new_zeros((B, width, h0.shape[-1]))
+    vdense = torch.zeros((B, width), dtype=torch.bool, device=h0.device)
+    kops.scatter_live([(dense, h0), (vdense, valid)],
+                      (slot.clamp(0, B - 1), col.clamp(0, width - 1)), live)
+    y_dense = _masked_recurrent_roll(blk, p, dense, s, vdense)
+    return y_dense[slot.clamp(0, B - 1), col.clamp(max=width - 1)][None]
+
+
 def block_step_ragged(params, cfg: ModelCfg, blk: BlockCfg, x, state, slot,
                       q_pos, seq_idx, valid, *, width: int,
                       flash_decode: bool = False):
     """One layer of the ragged step; ``params``/``state`` are one layer's
-    views.  ``seq_idx``/``width`` feed the recurrent repack of hybrid
-    mixers, which this slice does not have; they stay for the signature."""
+    views.  ``seq_idx``/``width`` feed the recurrent repack of the xLSTM
+    mixers (``_ragged_recurrent_roll``)."""
     check_block(blk)
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
-    m, state = attn.ragged_attention_step(params["mixer"], blk.attn, h, state,
-                                          slot, q_pos, valid,
-                                          flash_decode=flash_decode)
+    if blk.mixer in RECURRENT_MIXERS:
+        m = _ragged_recurrent_roll(blk, params["mixer"], h, state, slot,
+                                   seq_idx, valid, width)
+    else:
+        m, state = attn.ragged_attention_step(params["mixer"], blk.attn, h,
+                                              state, slot, q_pos, valid,
+                                              flash_decode=flash_decode)
     x = x + m
     if blk.ffn is not None:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
@@ -258,13 +391,16 @@ def stage_step_ragged(params, cfg: ModelCfg, stage: Stage, x, states, slot,
 def block_step_paged(params, cfg: ModelCfg, blk: BlockCfg, x, state, q_pos,
                      valid, *, flash_decode: bool = False):
     """One layer of the two-phase step (x: (B, C, D); ``params``/``state``
-    one layer's views).  Attention mixers with a dense FFN only: the
-    recurrent rolls of JAX's hybrid mixers raise in ``check_block``."""
+    one layer's views): attention, or the masked recurrent roll of an
+    xLSTM mixer over the C positions."""
     check_block(blk)
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
-    m, state = attn.paged_attention_step(params["mixer"], blk.attn, h, state,
-                                         q_pos, valid,
-                                         flash_decode=flash_decode)
+    if blk.mixer in RECURRENT_MIXERS:
+        m = _masked_recurrent_roll(blk, params["mixer"], h, state, valid)
+    else:
+        m, state = attn.paged_attention_step(params["mixer"], blk.attn, h,
+                                             state, q_pos, valid,
+                                             flash_decode=flash_decode)
     x = x + m
     if blk.ffn is not None:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
@@ -289,12 +425,13 @@ def reset_stage_slots(stage: Stage, states: List[dict], init_states,
     ``ptab_rows`` into the block tables, make the first ``prefix_len``
     positions live in ``kpos`` (the inherited prefix; a windowed layer's
     buffer index is not its position, but it never inherits one) and start
-    ``slen`` at ``prefix_len``; the other per-slot leaves, a windowed
-    layer's k/v buffers, are filled in place with their fresh-init value,
-    which ``init_states`` holds as a number (0; JAX restores them from a
-    copy of the fresh state, which is the same, without a full-size
-    template).  Pool leaves (values and int8 scales) are shared by all
-    slots and left alone.  mask: (B,) bool; ptab_rows: (B, pps);
+    ``slen`` at ``prefix_len``; the other per-slot leaves (a windowed
+    layer's k/v buffers, a recurrent layer's states) are filled in place
+    with their fresh-init value, which ``init_states`` holds as a number
+    (``FRESH_VALUES``: JAX restores them from a copy of the fresh state,
+    which holds the same values, without a full-size template).  Pool
+    leaves (values and int8 scales) are shared by all slots and left
+    alone.  mask: (B,) bool; ptab_rows: (B, pps);
     prefix_len: (B,)."""
     for s_blk, i_blk in zip(states, init_states):
         for name, leaf in s_blk.items():
@@ -320,16 +457,22 @@ def reset_stage_slots(stage: Stage, states: List[dict], init_states,
 def rollback_stage_slots(stage: Stage, states: List[dict], mask, new_len):
     """Speculative rejection, in place (JAX ``rollback_stage_slots``): for
     masked slots, ``kpos`` entries holding a position >= ``new_len`` drop
-    to -1 and ``slen`` clamps down to ``new_len``; pools, scale pools and
-    block tables are left alone.  ``kpos`` stores absolute positions, so
-    the rejected tail is exactly the entries at or past ``new_len``.
-    Leaves are (layers, B, ...); mask, new_len: (B,)."""
+    to -1 and ``slen`` clamps down to ``new_len``; every other leaf —
+    pools, scale pools, block tables, windowed and recurrent state — is
+    left alone.  ``kpos`` stores absolute positions, so the rejected tail
+    is exactly the entries at or past ``new_len``.  Leaves are (layers, B,
+    ...); mask, new_len: (B,)."""
+    m = mask[None, :]
     for s_blk in states:
-        kpos, slen = s_blk["kpos"], s_blk["slen"]
-        m = mask[None, :]
-        nl = new_len.to(kpos.dtype)[None, :]
-        kpos.copy_(torch.where(m[..., None] & (kpos >= nl[..., None]), -1, kpos))
-        slen.copy_(torch.where(m, torch.minimum(slen, nl.to(slen.dtype)), slen))
+        if "kpos" in s_blk:
+            kpos = s_blk["kpos"]
+            nl = new_len.to(kpos.dtype)[None, :]
+            kpos.copy_(torch.where(m[..., None] & (kpos >= nl[..., None]), -1,
+                                   kpos))
+        if "slen" in s_blk:
+            slen = s_blk["slen"]
+            nl = new_len.to(slen.dtype)[None, :]
+            slen.copy_(torch.where(m, torch.minimum(slen, nl), slen))
     return states
 
 
@@ -339,24 +482,33 @@ def rollback_stage_slots(stage: Stage, states: List[dict], mask, new_len):
 
 def init_stage_state(cfg: ModelCfg, stage: Stage, batch: int, cache_len: int,
                      dtype, *, device=None):
-    """One lock-step cache per pattern position (``attention.init_cache``),
-    stacked over the repeats (JAX ``init_stage_state``)."""
+    """One lock-step cache per pattern position (``attention.init_cache``,
+    or a recurrent layer's fresh state), stacked over the repeats (JAX
+    ``init_stage_state``)."""
     out = []
     for blk in stage.pattern:
         check_block(blk)
-        out.append(attn.init_cache(blk.attn, batch, cache_len, dtype,
-                                   layers=stage.repeats, device=device))
+        if blk.mixer in RECURRENT_MIXERS:
+            out.append(_init_recurrent_state(cfg, blk, batch, dtype,
+                                             stage.repeats, device))
+        else:
+            out.append(attn.init_cache(blk.attn, batch, cache_len, dtype,
+                                       layers=stage.repeats, device=device))
     return out
 
 
 def block_decode(params, cfg: ModelCfg, blk: BlockCfg, x, state, *,
                  sp_decode: bool = False):
     """One layer of the lock-step decode (x: (B, 1, D); ``params``/``state``
-    one layer's views; the cache is updated in place)."""
+    one layer's views; the cache or recurrent state is updated in place)."""
     check_block(blk)
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
-    m, state = attn.attention_decode(params["mixer"], blk.attn, h, state,
-                                     sp_decode=sp_decode)
+    if blk.mixer in RECURRENT_MIXERS:
+        m, new = RECURRENT_DECODE[blk.mixer](params["mixer"], blk.xlstm, h, state)
+        store_state(state, new)
+    else:
+        m, state = attn.attention_decode(params["mixer"], blk.attn, h, state,
+                                         sp_decode=sp_decode)
     x = x + m
     if blk.ffn is not None:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)

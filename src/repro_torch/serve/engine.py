@@ -104,6 +104,13 @@ identical to the JAX engine's on the same weights:
   and preemption need every layer paged and are switched off silently for
   such a model (``stats["spec_k"]`` reads 0), and a model with no paged
   layer takes one block table per slot of pages and reserves none.
+- **Recurrent models** (xlstm-350m's mLSTM and sLSTM mixers).  Each slot
+  keeps its recurrent state; a step scatters the pack into a (B, width)
+  layout and rolls the single-step decode ``width`` times, each slot's
+  state advancing only on its valid tokens (``transformer.
+  _ragged_recurrent_roll``, JAX's design, inside the captured graph).  The
+  gates are the windowed model's: no prefix cache, speculation or
+  preemption, and no page is reserved.
 
 Left for a later slice, raising ``NotImplementedError``: tensor
 parallelism (``mesh``).
@@ -1133,13 +1140,15 @@ class ServeEngine:
         life (the pool's pages ARE the prefix cache).  Windowed layers'
         buffers hold ``prefill_chunk`` entries past the window, as in JAX.
         The reset template holds what admission restores from it: a
-        windowed layer's k/v buffers, whose fresh value is 0 and is kept as
-        that number (``transformer.reset_stage_slots`` fills the admitted
-        slots in place); block tables, ``kpos`` and ``slen`` are set from
-        the admission itself and the pools are never reset.  The host tier's
-        store is allocated beside it: one tensor per paged leaf, a row per
-        host slot, pinned on a CUDA device (a failed pinned allocation
-        raises; nothing falls back to pageable memory).  The steps of the
+        windowed layer's k/v buffers and a recurrent layer's states, each
+        fresh value kept as a number (``model.reset_template``: 0, and
+        -1e30 for the sLSTM stabilizer; ``transformer.reset_stage_slots``
+        fills the admitted slots in place); block tables, ``kpos`` and
+        ``slen`` are set from the admission itself and the pools are never
+        reset.  The host tier's store is allocated beside it: one tensor
+        per paged leaf, a row per host slot, pinned on a CUDA device (a
+        failed pinned allocation raises; nothing falls back to pageable
+        memory).  The steps of the
         engine's path are built (and, on a CUDA device, captured) here,
         once, over that state."""
         if self._state is None:
@@ -1147,9 +1156,7 @@ class ServeEngine:
                 self.params, self.cfg, self.B, self.cache_len,
                 page_size=self.page_size, n_pages=self.n_pages,
                 window_extra=self.chunk, kv_dtype=self.kv_dtype)
-            self._template = {"layers": [
-                [{k: 0 for k in ("k", "v") if k in c} for c in ss]
-                for ss in self._state["layers"]]}
+            self._template = M.reset_template(self._state)
             if self.host_pages:
                 pin = self.device.type == "cuda"
                 self._host_store = {

@@ -105,7 +105,8 @@ def _write_slot(cfg: ModelCfg, state, one, b: int) -> None:
       ``repeats == 1`` stage) takes the maximum of the two: the lock-step
       position;
     - "k_pos" (shared by the batch) is replaced by the batch-1 state's;
-    - any other leaf is written at ``b`` along its batch axis, the first
+    - any other leaf — a cache's k/v, a recurrent layer's state — is
+      written at ``b`` along its batch axis, the first
       axis whose size differs between the two; where none differs (at
       ``batch_size == 1``, or a stacked stage's per-layer "pos") the leaf
       is replaced whole."""

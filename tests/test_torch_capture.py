@@ -18,6 +18,9 @@ CPU (the qwen2-1.5b smoke config):
   1e-4 in float32, integer and int8 leaves equal;
 - the same for gemma3's smoke config (windowed layers, window 16): its
   ragged, chunk and decode steps and an admission's slot reset;
+- the recorder and the all-invalid pack over xlstm-350m's smoke config
+  (mLSTM and sLSTM mixers): the ragged step's (B, width) repack and
+  masked roll, the two-phase steps' masked rolls, the slot reset;
 - a ``CapturedStep``'s static inputs keep their ``data_ptr()`` across
   ticks, and ``stats["traces"]`` is 1 once the ragged step has run, as
   the JAX engine counts traces.
@@ -257,6 +260,72 @@ def _leaves(state):
     return {f"{i}.{j}.{k}": v.clone()
             for i, ss in enumerate(state["layers"])
             for j, c in enumerate(ss) for k, v in c.items()}
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    """xlstm-350m's smoke config (two stacked repeats of an mLSTM and an
+    sLSTM block) in float32, seed-0 weights."""
+    cfg = tget("xlstm-350m", smoke=True).replace(dtype="float32")
+    params = TM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    return cfg, params
+
+
+def _recurrent_state(cfg, params):
+    """A recurrent serving state, its three slots admitted (from the
+    template: the sLSTM stabilizer at -1e30)."""
+    state = TM.init_paged_state(params, cfg, B, CACHE, page_size=P,
+                                n_pages=NPAGES)
+    tmpl = TM.reset_template(state)
+    rows = np.full((B, PPS), NPAGES, np.int32)
+    TM.reset_paged_slots(cfg, state, tmpl, torch.ones(B, dtype=torch.bool),
+                         torch.from_numpy(rows), torch.zeros(B, dtype=torch.int32))
+    return state, tmpl, rows
+
+
+@pytest.mark.parametrize("kind", ["ragged", "chunk", "decode", "reset"])
+def test_recurrent_steps_dispatch_no_host_synchronising_op(recurrent, kind):
+    """The recorder over a recurrent model's steps — the ragged step's
+    scatter into the (B, width) layout, the masked roll of ``width`` steps
+    and the gather back; the two-phase steps' masked rolls — and over an
+    admission's slot reset (the recurrent leaves from their template)."""
+    cfg, params = recurrent
+    state, tmpl, rows = _recurrent_state(cfg, params)
+    steps = {k: v for k, v in _steps(cfg, params, state, False).items()
+             if k in ("ragged", "chunk", "decode")}
+    steps["ragged"].run(*_ragged_pack(seed=1))
+    with _Recorder() as rec:
+        if kind == "reset":
+            TM.reset_paged_slots(cfg, state, tmpl,
+                                 torch.tensor([False, True, False]),
+                                 torch.from_numpy(rows),
+                                 torch.zeros(B, dtype=torch.int32))
+        else:
+            steps[kind].run(*_pack_for(kind, seed=2))
+    assert rec.bad == []
+
+
+@pytest.mark.parametrize("kind", ["ragged", "chunk", "decode"])
+def test_recurrent_all_invalid_pack_leaves_the_state_bit_identical(recurrent,
+                                                                   kind):
+    """The capture's warm-up pack on a recurrent model, after a real pack
+    advanced every slot: no slot's state moves."""
+    cfg, params = recurrent
+    state, _, _ = _recurrent_state(cfg, params)
+    steps = _steps(cfg, params, state, False)
+    steps["ragged"].run(*_ragged_pack(seed=3))
+    before = _leaves(state)
+    idle = {"ragged": lambda: SS.idle_ragged_pack(T, B, C + 1),
+            "chunk": lambda: SS.idle_paged_pack(B, C),
+            "decode": lambda: SS.idle_paged_pack(B, 1)}[kind]()
+    steps[kind].run(*idle)
+    after = _leaves(state)
+    assert before.keys() == after.keys()
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+
+
 
 
 @pytest.mark.parametrize("flash", [False, True], ids=["gather", "kernel"])
@@ -523,6 +592,35 @@ def test_captured_windowed_engine_matches_eager_engine(ragged, act, kv_dtype,
                                    else se["decode_ticks"])
     launches = 2 * ticks if flash else 0  # two global layers
     assert st["kernel_launches"] == se["kernel_launches"] == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "two-phase"])
+def test_captured_recurrent_engine_matches_eager_engine(ragged, act):
+    """xlstm-350m's smoke config served captured and eagerly: equal
+    transcripts over two waves (the second reuses slots, whose state the
+    reset restores), one graph per step, no attention kernel, and the
+    recurrent states in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = tget("xlstm-350m", smoke=True).replace(dtype=act)
+    params = TM.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    kw = dict(batch_size=3, cache_len=128, page_size=16, prefill_chunk=16,
+              token_budget=32, ragged=ragged, flash_decode=True, device="cuda")
+    eager = ServeEngine(params, cfg, cuda_graph=False, **kw)
+    graph = ServeEngine(params, cfg, **kw)
+    graph.pool_tensors()  # builds and captures the steps
+    ptrs = [t.data_ptr() for ss in graph._state["layers"] for c in ss
+            for t in c.values()]
+    want = _card_serve(eager, cfg.vocab_size)
+    assert _card_serve(graph, cfg.vocab_size) == want
+    assert [t.data_ptr() for ss in graph._state["layers"] for c in ss
+            for t in c.values()] == ptrs
+    st, se = graph.stats, eager.stats
+    assert st["graph_captures"] == (1 if ragged else 2)
+    assert st["kernel_launches"] == se["kernel_launches"] == 0
 
 
 class _ReleasingGraph(torch.cuda.graph):

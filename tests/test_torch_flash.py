@@ -188,6 +188,8 @@ def test_wrapper_rejects_bad_inputs(bad):
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 96, "simt"),     # no TMA box / wgmma tile for it
     (torch.bfloat16, 8, "simt"),
+    (torch.bfloat16, 256, "simt"),    # gemma3-4b's global layers
+    (torch.float32, 256, "simt"),
     (torch.float32, 128, "simt"),     # the parity route: no TF32
     (torch.float32, 64, "simt"),
 ])
@@ -358,3 +360,42 @@ def test_cuda_simt_variant_matches_plain_version(dtype, hd):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
         assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,window", [(256, None), (256, 512), (200, None),
+                                       (200, 512)])
+def test_cuda_simt_variant_past_head_dim_128(dtype, hd, window):
+    """head_dim above 128 on the "simt" variant (its accumulator takes one
+    4-column group per 64 columns, four at hd 256): gemma3-4b's global
+    layers' 256, and 200, whose last group is an eighth full; G 2 (8 query
+    rows over 4 KV rows), S 1024, causal, and a 512-key window.
+    Tolerance: float32 rtol = atol = 1e-4; bfloat16 as
+    ``assert_bf16_close``; only the simt count moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (t.cuda() for t in _torch(_qkv(8, 4, 1024, hd, seed=hd),
+                                        getattr(torch, dtype)))
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant == {"wgmma": 0, "simt": 1}
+    want = fa.flash_attention_ref(q, k, v, window)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_refuses_head_dim_past_256():
+    """264 (a multiple of 8 past the kernel's 256) raises before any
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (t.cuda() for t in _torch(_qkv(2, 1, 64, 264)))
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="up to 256"):
+        fa.flash_attention(q, k, v)
+    assert fa.launches == 0

@@ -179,7 +179,7 @@ def test_ragged_step_updates_state_in_place(qwen):
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "xlstm-350m", "hubert-xlarge",
+                                  "hubert-xlarge",
                                   "llama-3.2-vision-11b",
                                   "llama4-maverick-400b-a17b"])
 def test_configs_outside_the_slice_raise(arch):
