@@ -30,8 +30,9 @@ Phases (every check asserts; any failure exits non-zero):
      copies of the pools that together exceed the 50 MB L2), beside the
      byte/operation bound.  Then, bf16 q over bf16 and int8 pools, each
      through "mma" with the same tolerances, device time beside the bound:
-     the mixed pack at glm4-9b's head layout (kvH 2, G 16) and qwen1.5-4b's
-     (kvH 20, G 1), and a verify pack at glm4-9b's (8 slots, lens up to
+     the mixed pack at glm4-9b's head layout (kvH 2, G 16), qwen1.5-4b's
+     (kvH 20, G 1), llama4-maverick's (kvH 8, G 5) and jamba's (kvH 8,
+     G 8), and a verify pack at glm4-9b's (8 slots, lens up to
      2048: each slot's decode token, then its 4 draft tokens as a later
      run, as the speculative engine packs them).
    - flash_attention at the training shape (q (24, 4096, 128) over k/v
@@ -174,6 +175,32 @@ Phases (every check asserts; any failure exits non-zero):
    time, idle share against the unprofiled run's same tick, and the kernels
    a replay runs.  Printed per arm: ms per tick, tokens/s, build and
    capture time, peak memory.
+4f. MoE serving at full width: llama4-maverick-400b-a17b, its first
+   period (2 layers: dense, then MoE; d 5120, 40 over 8 KV heads at hd
+   128, 128 experts top-1 of d_ff 8192 plus the shared expert, untied
+   vocab 202048; 18.55 B parameters, 37.1 GB in bf16; seed-0 weights, each
+   leaf cast as it is drawn, bf16 activations) through phase 4's ragged
+   workload (``serve_full``), captured and eager: captured transcripts
+   equal the eager ones, prefix hits and copy-on-write, kernel 1 twice a
+   tick, all "mma"; the captured arm repeated under the CUDA profiler
+   (busy time, idle share, "mma" instances = launches).  The MoE layer
+   alone on a (1, 256, d) pack (device time) beside the byte floor of its
+   expert weights, which the dispatch reads whole every tick (32.2 GB /
+   3.35 TB/s = 9.6 ms), and its share of the captured tick's busy time.
+   Printed: ms per tick, tokens/s, busy ms, idle share, peak memory.
+4g. Hybrid serving at full width: jamba-1.5-large-398b, the first five
+   layers of its period (mamba+MLP, mamba+MoE, mamba+MLP, mamba+MoE,
+   attention+MLP: every block kind; d 8192, d_in 16384, d_state 16, 16
+   experts top-2 of d_ff 24576, 64 over 8 KV heads; 24.05 B parameters,
+   48.1 GB in bf16) through the ragged engine at phase 4e's settings and
+   wave (``JAMBA_KW``: prefill_chunk 32, so each Mamba layer rolls its
+   single-step decode 33 times a tick), captured and eager: equal
+   transcripts, the recurrent gates (no prefix cache, speculation or
+   preemption), kernel 1 once a tick, all "mma"; the captured arm
+   repeated under the CUDA profiler (busy time, idle share, instances =
+   launches, kernels a replay); the MoE layers alone beside their
+   expert-read floor, and the roll's Mamba weight reads (4 layers x 0.84
+   GB x 33 a tick) beside the reading.
 5. The kernel route against the gather route at full width in f32: after a
    prefill step, one ragged step of a mixed pack from the same state
    through each route; then, for the two-phase path, one decode tick after
@@ -525,22 +552,27 @@ def check_kernel(card: str) -> dict:
             "shapes": check_kernel_shapes(card)}
 
 
-# the serving kernel's head layouts of this slice's configs: glm4-9b (32
-# query heads over 2 KV heads) and qwen1.5-4b (20 heads, multi-head)
-SHAPES = {"glm4-9b": dict(kvH=2, G=16, hd=128), "qwen1.5-4b": dict(kvH=20, G=1, hd=128)}
+# the serving kernel's head layouts of the served configs: glm4-9b (32
+# query heads over 2 KV heads), qwen1.5-4b (20 heads, multi-head),
+# llama4-maverick (40 over 8) and jamba (64 over 8)
+SHAPES = {"glm4-9b": dict(kvH=2, G=16, hd=128), "qwen1.5-4b": dict(kvH=20, G=1, hd=128),
+          "llama4-maverick": dict(kvH=8, G=5, hd=128),
+          "jamba-1.5-large": dict(kvH=8, G=8, hd=128)}
 
 
 def check_kernel_shapes(card: str) -> dict:
-    """Kernel 1 at glm4-9b's and qwen1.5-4b's head layouts on the mixed
-    pack, and at glm4-9b's on a verify pack (each slot's decode token, then
-    its 4 draft tokens as a later run), bf16 q over bf16 and int8 pools,
+    """Kernel 1 at glm4-9b's, qwen1.5-4b's, llama4-maverick's (G 5) and
+    jamba's (G 8) head layouts on the mixed pack, and at glm4-9b's on a
+    verify pack (each slot's decode token, then its 4 draft tokens as a
+    later run), bf16 q over bf16 and int8 pools,
     each through the "mma" variant, against the plain version with the
     tolerances of ``check_kernel``; the device time beside the byte bound."""
     from repro_torch.kernels import ragged_paged_flash as rpf
 
     dev = torch.device("cuda")
     out = {}
-    cases = [("glm4-9b", "mixed"), ("qwen1.5-4b", "mixed"), ("glm4-9b", "verify")]
+    cases = [("glm4-9b", "mixed"), ("qwen1.5-4b", "mixed"), ("glm4-9b", "verify"),
+             ("llama4-maverick", "mixed"), ("jamba-1.5-large", "mixed")]
     for arch, kind in cases:
         pack = make_pack(kind, **SHAPES[arch])
         for kv_dt in (torch.bfloat16, torch.int8):
@@ -1269,7 +1301,7 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     tag = f", profiled ({profile})" if profile else ""
     kind = ("ragged" if ragged else
             f"two-phase ({st['chunk_ticks']} prefill, {st['decode_ticks']} decode ticks)")
-    print(f"serve qwen2-1.5b FULL width ({cfg.n_layers} layers), {kind}, pools "
+    print(f"serve {cfg.name} FULL width ({cfg.n_layers} layers), {kind}, pools "
           f"{kv_dtype or 'bfloat16'}, {arm}{tag}, on {card}: {len(handles)} "
           f"requests, {toks} tokens in {wall:.3f} s = {toks / wall:.1f} "
           f"tokens/s, {ticks} ticks, {1e3 * wall / ticks:.2f} ms/tick, peak "
@@ -1309,8 +1341,9 @@ def tally_profile(prof, kname, cfg, launches, kernel_ticks, ticks, wall,
     (``instances``: the "mma" variant's kernel unless named), which must
     equal the engine's ``launches``, ``per_tick`` (all layers unless given)
     a kernel tick (fewer raises ``RecordsLost``, more or none fails).
-    Returns {"busy_ms", "kernel_device_ms"}, empty when the profiler
-    recorded no device time."""
+    Returns {"busy_ms", "kernel_device_ms", "kernels"} (``kernels``: every
+    kernel and copy instance recorded), empty when the profiler recorded
+    no device time."""
     instances = instances or MMA_KERNELS[kname]
     per_tick = per_tick or cfg.n_layers
     by_name, count = {}, {}
@@ -1348,7 +1381,8 @@ def tally_profile(prof, kname, cfg, launches, kernel_ticks, ticks, wall,
           f"(profiler, all its kernels) {k_ms:.3f} ms = "
           f"{k_ms / launches:.4f} ms per launch, {k_ms / busy:.3f} of the "
           f"busy time")
-    return {"busy_ms": busy, "kernel_device_ms": k_ms}
+    return {"busy_ms": busy, "kernel_device_ms": k_ms,
+            "kernels": sum(count.values())}
 
 
 # host time on each side of a profiled tick, inside its profiler window
@@ -1989,28 +2023,31 @@ def global_layers(cfg) -> int:
                if blk.mixer == "attn" and blk.attn.window is None)
 
 
-def serve_gemma(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
-                captured: bool = True, profile=None) -> dict:
-    """The gemma3 workload (``GEMMA_LENS``, ``GEMMA_OUT`` tokens each, seed
-    7) once through the ragged engine or, with ``ragged=False``, the
-    two-phase engine, captured or eager.  Asserts every request's length,
-    finite logits, the windowed gates (no prefix cache, no speculation, no
-    preemption), the pools in place, and the kernel launches: one per
-    global layer a kernel tick (replay-aware when captured; eager, the
-    wrappers' own count, all "simt").  Each admission's slot reset is
-    bracketed by CUDA events (outside any graph).  ``profile="cuda"``
-    counts the "simt" attention-kernel instances against the launches
-    (``tally_profile``)."""
+def serve_wave(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
+               captured: bool = True, profile=None, kw=GEMMA_KW,
+               lens=GEMMA_LENS, out_tokens=GEMMA_OUT, seed=7,
+               variant="simt") -> dict:
+    """A wave of requests (``lens`` prompt tokens, ``out_tokens`` each,
+    from ``seed``; the gemma3 workload by default) once through the ragged
+    engine or, with ``ragged=False``, the two-phase engine, at engine
+    settings ``kw``, captured or eager.  Asserts every request's length,
+    finite logits, the gates of a model with a per-slot layer (windowed or
+    recurrent: no prefix cache, no speculation, no preemption), the pools
+    in place, and the kernel launches: one per global layer a kernel tick
+    (replay-aware when captured; eager, the wrappers' own count, all
+    ``variant``).  Each admission's slot reset is bracketed by CUDA events
+    (outside any graph).  ``profile="cuda"`` counts the ``variant``
+    attention-kernel instances against the launches (``tally_profile``)."""
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.kernels import ragged_paged_flash as rpf
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
 
-    kmod, kname, fn = ((rpf, "ragged_paged_flash", "ragged_simt_kernel")
+    kmod, kname, fn = ((rpf, "ragged_paged_flash", f"ragged_{variant}_kernel")
                        if ragged else
-                       (pfd, "paged_flash_decode", "decode_simt_kernel"))
+                       (pfd, "paged_flash_decode", f"decode_{variant}_kernel"))
     eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, ragged=ragged,
-                      device=params.device, cuda_graph=captured, **GEMMA_KW)
+                      device=params.device, cuda_graph=captured, **kw)
     assert not eng.prefix_cache and eng._spec_k == 0 and not eng.preempt
     ptrs = [t.data_ptr() for t in eng.pool_tensors()]  # builds the steps
     steps = ([eng._ragged_step] if ragged
@@ -2035,8 +2072,8 @@ def serve_gemma(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
         resets.append((start, end))
         return out
 
-    rng = np.random.RandomState(7)
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in GEMMA_LENS]
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens]
     prof = tick_profiler(eng) if profile == "cuda" else contextlib.nullcontext()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -2045,14 +2082,14 @@ def serve_gemma(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     try:
         with prof:
             t0 = time.perf_counter()
-            handles = [eng.submit(p, max_tokens=GEMMA_OUT) for p in prompts]
+            handles = [eng.submit(p, max_tokens=out_tokens) for p in prompts]
             results = eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         M.reset_paged_slots = reset
     st = eng.stats
-    assert all(len(results[h]) == GEMMA_OUT for h in handles), \
+    assert all(len(results[h]) == out_tokens for h in handles), \
         {int(h): len(results[h]) for h in handles}
     layers = global_layers(cfg)
     kticks = st["ragged_ticks"] if ragged else st["decode_ticks"]
@@ -2061,7 +2098,7 @@ def serve_gemma(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     if captured:
         assert kmod.launches == 0, kmod.launches
     else:
-        assert kmod.launches == launches == kmod.launches_by_variant["simt"], \
+        assert kmod.launches == launches == kmod.launches_by_variant[variant], \
             (kmod.launches, launches, kmod.launches_by_variant)
     assert [t.data_ptr() for t in eng.pool_tensors()] == ptrs, "pools moved"
     assert eng.pool.pages_in_use == 0 and eng.reclaimable_pages == eng.n_pages
@@ -2155,13 +2192,13 @@ def gemma_phase(card: str) -> dict:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     res = {}
     for kv in (None, "int8"):
-        cap = serve_gemma(params, cfg, kv, card)
-        eager = serve_gemma(params, cfg, kv, card, captured=False)
+        cap = serve_wave(params, cfg, kv, card)
+        eager = serve_wave(params, cfg, kv, card, captured=False)
         gc.collect()
         assert cap["transcripts"] == eager["transcripts"], \
             f"captured and eager transcripts differ ({kv or 'bfloat16'})"
         res[kv] = {"captured": cap, "eager": eager}
-    prof = serve_profiled(params, cfg, None, card, run=serve_gemma)
+    prof = serve_profiled(params, cfg, None, card, run=serve_wave)
     res[None]["captured"]["busy_ms"] = prof.get("busy_ms")
     for kv, arms in res.items():
         for arm, r in arms.items():
@@ -2188,7 +2225,7 @@ def gemma_phase(card: str) -> dict:
     assert cut.n_layers == 12 and global_layers(cut) == 2
     p12 = M.init_params(cut, generator=torch.Generator("cuda").manual_seed(0),
                         device="cuda")
-    two = {kv: serve_gemma(p12, cut, kv, card, ragged=False)
+    two = {kv: serve_wave(p12, cut, kv, card, ragged=False)
            for kv in (None, "int8")}
     for r in two.values():
         assert r["launches"] == 2 * r["kernel_ticks"], r["launches"]
@@ -2405,6 +2442,185 @@ def xlstm_phase(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"captured": cap, "eager": eager, "profiled": prof["profiled"]}
+
+
+# ---------------------------------------------------------------------------
+# 4f/4g. MoE and hybrid serving at full width (llama4-maverick, jamba)
+
+# jamba's serving wave: phase 4e's settings (the roll's width is the prefill
+# chunk + 1, 33) and requests
+JAMBA_KW = dict(XLSTM_KW, cache_len=1024)
+
+
+def cut_stage(cfg, layers: int):
+    """``cfg``'s one stage cut to the first ``layers`` positions of its
+    pattern, once (full width)."""
+    from repro_torch.configs import Stage
+
+    return cfg.replace(stages=(Stage(cfg.stages[0].pattern[:layers], 1),))
+
+
+def moe_layer_ms(params, cfg, card: str, T: int) -> list:
+    """Each MoE layer of ``params`` timed alone on a (1, T, d) bf16 pack
+    (the ragged step's layout, capacity over the T tokens): device time
+    (``device_ms``) beside the byte floor of its expert weights (every
+    expert is read: the dispatch runs each expert over its C slots) and
+    its capacity.  Returns [(ms, floor ms)] a layer."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import moe
+
+    dev = params.device
+    x = torch.randn(1, T, cfg.d_model, device=dev,
+                    generator=torch.Generator(dev).manual_seed(3)
+                    ).to(getattr(torch, cfg.dtype))
+    out = []
+    for blk, bp in zip(cfg.stages[0].pattern, params.stages[0]):
+        if blk.ffn != "moe":
+            continue
+        p = tfm.layer_view(bp, 0)["ffn"]
+        nbytes = sum(p[k].numel() * p[k].element_size()
+                     for k in ("we_gate", "we_up", "we_down"))
+        with torch.no_grad():
+            ms = device_ms(lambda: moe.moe_fwd(p, blk.moe, x), iters=10)
+        floor = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  MoE layer ({blk.moe.num_experts} experts top-{blk.moe.top_k}, "
+              f"d_ff {blk.moe.d_ff}, capacity {moe.capacity(blk.moe, T)} "
+              f"of {T} tokens) alone at T={T} on {card}: device "
+              f"{fmt_ms(ms)}; its experts' {nbytes / 1e9:.2f} GB over "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {floor:.2f} ms floor")
+        out.append((ms, floor))
+    return out
+
+
+def busy_line(name: str, card: str, r: dict) -> str:
+    wall_tick = r["wall_ms"] / r["ticks"]
+    busy = r.get("busy_ms")
+    return (f"{name} on {card}: {wall_tick:.3f} ms per tick, "
+            f"{r['tokens'] / r['wall_ms'] * 1e3:.2f} tokens/s"
+            + ("" if busy is None else
+               f", device busy {busy / r['ticks']:.3f} ms per tick (profiled "
+               f"repeat), idle share {1 - busy / r['ticks'] / wall_tick:.3f}"))
+
+
+def llama4_phase(card: str) -> dict:
+    """Phase 4f: llama4-maverick-400b-a17b at full width, its first period
+    (2 layers: dense, then MoE with 128 experts top-1 and the shared
+    expert; untied vocab 202048; seed-0 weights, bf16 activations) through
+    phase 4's ragged workload (``serve_full``: prefix hits and
+    copy-on-write, 2 launches of kernel 1 a tick, all "mma"), captured and
+    eager (equal transcripts), the captured arm profiled (busy time, idle
+    share, kernel-1 instances = launches); the MoE layer alone at the
+    pack's shape beside its expert-read floor."""
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = cut_stage(get_config("llama4-maverick-400b-a17b"), 2)
+    assert [b.ffn for b in cfg.stages[0].pattern] == ["mlp", "moe"]
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() / 2**30
+    print(f"llama4-maverick-400b-a17b, first period at full width (2 layers): "
+          f"{param_count(cfg) / 1e9:.3f} B parameters, {weights:.2f} GiB "
+          f"allocated, init peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB, built in {time.perf_counter() - t0:.1f} s")
+    cap = serve_full(params, cfg, None, card)
+    gc.collect()
+    eager = serve_full(params, cfg, None, card, captured=False)
+    gc.collect()
+    assert cap["transcripts"] == eager["transcripts"], \
+        "captured and eager transcripts differ"
+    assert cap["launches"] == 2 * cap["kernel_ticks"] > 0, cap["launches"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = serve_profiled(params, cfg, None, card)
+    cap["busy_ms"] = prof.get("busy_ms")
+    moe = moe_layer_ms(params, cfg, card, T=256)
+    for name, r in (("captured", cap), ("eager", eager)):
+        print(busy_line(f"llama4 (2 layers) ragged, bf16 pools, {name}", card, r))
+    if cap["busy_ms"] is not None and moe[0][0] is not None:
+        busy_tick = cap["busy_ms"] / cap["ticks"]
+        print(f"  MoE layer share of the captured tick's busy time: "
+              f"{moe[0][0] / busy_tick:.3f} ({fmt_ms(moe[0][0])} alone against "
+              f"{busy_tick:.3f} ms busy a tick); expert-read floor "
+              f"{moe[0][1]:.2f} ms a tick")
+    print(f"phase 4f: captured transcripts equal the eager ones "
+          f"({cap['tokens']} tokens), ragged_paged_flash {cap['launches']} "
+          f"launches (2 x {cap['kernel_ticks']} ticks), peak memory "
+          f"{peak:.2f} GiB (weights {weights:.2f} GiB) "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"captured": cap, "eager": eager, "moe": moe}
+
+
+def jamba_phase(card: str) -> dict:
+    """Phase 4g: jamba-1.5-large-398b at full width, the first five layers
+    of its period (mamba+MLP, mamba+MoE, mamba+MLP, mamba+MoE,
+    attention+MLP: every block kind; d 8192, d_in 16384, d_state 16, 16
+    experts top-2 of d_ff 24576, 64 over 8 KV heads; seed-0 weights, bf16
+    activations) through the ragged engine at phase 4e's settings
+    (``JAMBA_KW``, the xlstm wave), captured and eager (equal transcripts;
+    the recurrent gates; kernel 1 once a tick, all "mma"), the captured arm
+    profiled (busy time, idle share, kernel-1 instances = launches, kernels
+    a replay); the MoE layers alone beside their expert-read floor and the
+    roll's Mamba weight reads."""
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = cut_stage(get_config("jamba-1.5-large-398b"), 5)
+    kinds = [(b.mixer, b.ffn) for b in cfg.stages[0].pattern]
+    assert kinds == [("mamba", "mlp"), ("mamba", "moe"), ("mamba", "mlp"),
+                     ("mamba", "moe"), ("attn", "mlp")], kinds
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() / 2**30
+    print(f"jamba-1.5-large-398b, first 5 layers of its period at full width: "
+          f"{param_count(cfg) / 1e9:.3f} B parameters, {weights:.2f} GiB "
+          f"allocated, init peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB, built in {time.perf_counter() - t0:.1f} s")
+    wave = dict(kw=JAMBA_KW, lens=XLSTM_LENS, out_tokens=XLSTM_OUT, seed=10,
+                variant="mma")
+    cap = serve_wave(params, cfg, None, card, **wave)
+    eager = serve_wave(params, cfg, None, card, captured=False, **wave)
+    gc.collect()
+    assert cap["transcripts"] == eager["transcripts"], \
+        "captured and eager transcripts differ"
+    assert cap["launches"] == cap["kernel_ticks"] > 0, cap["launches"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = serve_profiled(params, cfg, None, card, run=serve_wave, **wave)
+    cap["busy_ms"] = prof.get("busy_ms")
+    moe = moe_layer_ms(params, cfg, card, T=JAMBA_KW["token_budget"])
+    mamba_bytes = [sum(t.numel() * t.element_size() for t in bp.mixer.parameters())
+                   for blk, bp in zip(cfg.stages[0].pattern, params.stages[0])
+                   if blk.mixer == "mamba"]
+    width = JAMBA_KW["prefill_chunk"] + 1
+    roll_ms = width * sum(mamba_bytes) / HBM_BYTES_PER_S * 1e3
+    for name, r in (("captured", cap), ("eager", eager)):
+        print(busy_line(f"jamba (5 layers) ragged, bf16 pools, {name}", card, r))
+    if prof.get("kernels"):
+        print(f"  kernels a replay (profiled captured run): "
+              f"{prof['kernels'] / cap['ticks']:.0f} a tick")
+    print(f"  the roll reads each Mamba layer's "
+          f"{mamba_bytes[0] / 1e9:.3f} GB of weights {width} times a tick: "
+          f"{len(mamba_bytes)} layers, {roll_ms:.1f} ms a tick at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the MoE layers' expert reads "
+          f"{sum(f for _, f in moe):.1f} ms; floor "
+          f"{roll_ms + sum(f for _, f in moe):.1f} ms a tick")
+    print(f"phase 4g: captured transcripts equal the eager ones "
+          f"({cap['tokens']} tokens), ragged_paged_flash {cap['launches']} "
+          f"launches (1 x {cap['kernel_ticks']} ticks), peak memory "
+          f"{peak:.2f} GiB (weights {weights:.2f} GiB) "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"captured": cap, "eager": eager, "moe": moe, "roll_ms": roll_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -2973,6 +3189,10 @@ def main() -> int:
     phase_done("phase 4d")
     xlstm_phase(card)
     phase_done("phase 4e")
+    llama4_phase(card)
+    phase_done("phase 4f")
+    jamba_phase(card)
+    phase_done("phase 4g")
 
     cfg32 = full.replace(dtype="float32")
     p32 = M.init_params(cfg32, generator=torch.Generator("cuda").manual_seed(0),

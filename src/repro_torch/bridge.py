@@ -8,10 +8,12 @@ and hand them here, so this module never sees JAX.
   ``repro.models.model.init_params``.  Stages keep the stacked leading layer
   axis (a ``repeats == 1`` stage, unstacked in JAX, gains a layer axis of
   1); in the serving layout matrices, biases and the embedding are cast to
-  the activation dtype and norm scales and the xLSTM gates stay float32
+  the activation dtype and norm scales, the xLSTM gates, Mamba's
+  ``A_log``/``dt_b``/``ssm_D`` and the MoE router stay float32
   (``transformer.leaf_dtype``); in the training layout
   (``for_training=True``) every leaf is in the parameter dtype, with grads.
-  Nested groups (the mLSTM's ``out_norm``) stay nested.
+  Nested groups (the mLSTM's ``out_norm``, an MoE's ``ffn.dense``) stay
+  nested.
   An untied config's ``head.out_head`` (d, V) is a matrix like the others.
 - ``params_to_numpy`` / ``grads_to_numpy`` lay a ``Model``'s parameters,
   or a list of tensors in ``Model.parameters()`` order (gradients, AdamW
@@ -20,7 +22,8 @@ and hand them here, so this module never sees JAX.
   ways, with the same layer-axis rule, leaf dtypes unchanged: the paged
   serving state ({"layers": [[{kp, vp, [ks, vs], ptab, kpos, slen} or,
   for a windowed layer, {k, v, kpos, slen}; for an mLSTM layer {C, n, m,
-  conv}, for an sLSTM layer {sh, sc, sn, sm}]]}) and the lock-step state
+  conv}, for an sLSTM layer {sh, sc, sn, sm}, for a Mamba layer {h,
+  conv}]]}) and the lock-step state
   ({"layers": [[{k, v, k_pos, pos} or a recurrent layer's]], "pos"}),
   whose top-level "pos" is a 0-d scalar on both sides.
 """
@@ -93,7 +96,7 @@ def grads_to_numpy(params: M.Model, tensors: Sequence[torch.Tensor],
             s, i, groups, leaf = int(path[1]), int(path[2]), path[3:-1], path[-1]
             a = _numpy(t)
             node = out["stages"][s][i]
-            for g in groups:  # nested groups: the mLSTM's out_norm
+            for g in groups:  # nested groups: out_norm, an MoE's dense
                 node = node.setdefault(g, {})
             node[leaf] = a if cfg.stages[s].repeats > 1 else a[0]
         else:

@@ -478,7 +478,7 @@ def attention_decode(params, cfg: AttnCfg, x, cache, *, sp_decode: bool = False)
     if sp_decode:
         raise NotImplementedError(
             "sequence-parallel decode (sp_decode) is not ported yet: it comes "
-            "with multi-GPU serving (ROADMAP.md, Queue 1 item 7)")
+            "with multi-GPU serving (ROADMAP.md, Queue 1)")
     pos = cache["pos"].reshape(1).clone()  # this token's position
     q = _project_q(params, cfg, x)  # (B,1,kvH,G,hd)
     k_new, v_new = _project_kv(params, cfg, x)  # (B,1,kvH,hd)

@@ -21,11 +21,12 @@ pattern position] per stage]}) that every serving function here updates in
 place; the lock-step decode state adds a top-level scalar "pos".
 
 Supported: decoder token models whose blocks are attention — global, or
-windowed (sliding-window, as gemma3's local layers) — or xLSTM mixers
-(mLSTM, sLSTM: xlstm-350m), each with a dense FFN or none, with a tied or
-an untied output head (``head.out_head``, (d, V), as JAX's
-``{"head": {"out_head"}}``).  Everything else raises
-``NotImplementedError``.
+windowed (sliding-window, as gemma3's local layers) — or recurrent mixers
+(mLSTM, sLSTM: xlstm-350m; Mamba: jamba), each with a dense FFN, an MoE
+FFN (llama4, arctic, jamba) or none, with a tied or an untied output head
+(``head.out_head``, (d, V), as JAX's ``{"head": {"out_head"}}``).
+Frontends, encoders, cross-attention and absolute position encodings
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,7 +42,6 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers import embeddings as emb
 from repro_torch.models.layers.common import dense_init, embed_init
-from repro_torch.models.layers.mlp import mlp_fwd
 from repro_torch.models.layers.norms import rmsnorm
 
 MOE_LB_WEIGHT = 0.01
@@ -147,8 +147,10 @@ def _xent(logits, labels):
 
 
 def loss_fn(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
-    """-> (total loss, metrics {"ce_loss", "moe_lb_loss", "moe_z_loss"});
-    ``batch["loss_mask"]``, when present, weights the tokens."""
+    """-> (total loss, metrics {"ce_loss", "moe_lb_loss", "moe_z_loss"}):
+    the cross entropy plus the MoE layers' summed load-balance and z losses
+    under ``MOE_LB_WEIGHT`` and ``MOE_Z_WEIGHT`` (zero without an MoE
+    FFN); ``batch["loss_mask"]``, when present, weights the tokens."""
     logits, aux = forward(params, cfg, batch)
     per_tok = _xent(logits, batch["labels"])
     if "loss_mask" in batch:
@@ -381,7 +383,7 @@ def _stage_prefill(params, cfg: ModelCfg, stage, x, states, positions):
                 attn.prefill_cache(bp["mixer"], blk.attn, cache, h, positions)
             if blk.ffn is not None:
                 h = rmsnorm(bp["ffn_norm"], x, cfg.norm_eps)
-                x = x + mlp_fwd(bp["ffn"], blk.mlp, h)
+                x = x + tfm.ffn_fwd(bp["ffn"], blk, h)[0]
     return x
 
 
@@ -390,10 +392,10 @@ def _roll_recurrent(blk, p, h, state):
     from the parallel form, the state from the single-step decode rolled
     over every position of h (B, S, D), written into ``state`` (one
     layer's views) in place.  Returns the outputs."""
-    out = tfm.RECURRENT_FWD[blk.mixer](p, blk.xlstm, h)
+    c = tfm.mixer_cfg(blk)
+    out = tfm.RECURRENT_FWD[blk.mixer](p, c, h)
     cur = dict(state)
     for t in range(h.shape[1]):
-        _, cur = tfm.RECURRENT_DECODE[blk.mixer](p, blk.xlstm, h[:, t:t + 1],
-                                                 cur)
+        _, cur = tfm.RECURRENT_DECODE[blk.mixer](p, c, h[:, t:t + 1], cur)
     tfm.store_state(state, cur)
     return out

@@ -9,13 +9,15 @@ views.  The views share storage with the stacked tensors, so the in-place
 cache writes of each layer land in the stacked state, and the gradients of
 the training forward land in the stacked parameters.
 
-Attention blocks (global or windowed) and the xLSTM mixers (mLSTM, sLSTM),
-each with or without a dense FFN, are ported; mamba mixers, cross-attention
-and MoE FFNs raise ``NotImplementedError``.  A stage's layer loop runs
+Attention blocks (global or windowed) and the recurrent mixers (mLSTM,
+sLSTM, Mamba), each with a dense FFN, an MoE FFN or none, are ported;
+cross-attention raises ``NotImplementedError``.  A stage's layer loop runs
 repeat r over every pattern position before repeat r + 1, JAX's scan order.
 A recurrent mixer's serving and decode state is advanced functionally, one
 step at a time, and written back into its layer's views once the step's
-roll is done.
+roll is done.  The training forward returns the MoE layers' auxiliary
+losses summed over the layers, as JAX's ``_add_aux`` sums them; the
+serving paths drop them, as JAX's do.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import BlockCfg, ModelCfg, Stage
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import attention as attn
-from repro_torch.models.layers import xlstm
+from repro_torch.models.layers import mamba, moe, xlstm
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.mlp import mlp_fwd
 from repro_torch.models.layers.norms import rmsnorm
@@ -41,15 +43,23 @@ POOL_LEAVES = ("kp", "vp", "ks", "vs")
 # the reset template: a windowed layer's buffers and the recurrent states
 # (the sLSTM stabilizer starts at -1e30, everything else at 0)
 FRESH_VALUES = {"k": 0.0, "v": 0.0, "C": 0.0, "n": 0.0, "m": 0.0,
-                "conv": 0.0, "sh": 0.0, "sc": 0.0, "sn": 0.0, "sm": xlstm.NEG}
+                "conv": 0.0, "sh": 0.0, "sc": 0.0, "sn": 0.0, "sm": xlstm.NEG,
+                "h": 0.0}
 
 # the recurrent mixers: their training forward and single-step decode
-RECURRENT_FWD = {"mlstm": xlstm.mlstm_fwd, "slstm": xlstm.slstm_fwd}
-RECURRENT_DECODE = {"mlstm": xlstm.mlstm_decode, "slstm": xlstm.slstm_decode}
+RECURRENT_FWD = {"mlstm": xlstm.mlstm_fwd, "slstm": xlstm.slstm_fwd,
+                 "mamba": mamba.mamba_fwd}
+RECURRENT_DECODE = {"mlstm": xlstm.mlstm_decode, "slstm": xlstm.slstm_decode,
+                    "mamba": mamba.mamba_decode}
 RECURRENT_MIXERS = tuple(RECURRENT_FWD)
 
-# MoE auxiliary losses; always zero in the ported slices (no MoE FFN yet)
+# the identity of the MoE auxiliary losses' sum (a block without an MoE
+# FFN adds it)
 ZERO_AUX = {"moe_lb_loss": torch.zeros(()), "moe_z_loss": torch.zeros(())}
+
+# leaves the serving layout keeps float32 because JAX computes with them
+# in float32 whatever the activation dtype
+FLOAT32_LEAVES = xlstm.FLOAT32_LEAVES + mamba.FLOAT32_LEAVES + moe.FLOAT32_LEAVES
 
 
 def _add_aux(a, b):
@@ -62,11 +72,21 @@ def check_block(blk: BlockCfg) -> None:
         attn.check_attn(blk.attn)
     elif blk.mixer not in RECURRENT_MIXERS:
         raise NotImplementedError(
-            f"mixer {blk.mixer!r} is not ported yet: mamba mixers and "
-            "cross-attention come with later slices")
+            f"mixer {blk.mixer!r} is not ported yet: cross-attention comes "
+            "with a later slice")
+
+
+def mixer_cfg(blk: BlockCfg):
+    """The config of a recurrent mixer: ``blk.mamba`` or ``blk.xlstm``."""
+    return blk.mamba if blk.mixer == "mamba" else blk.xlstm
+
+
+def ffn_fwd(params, blk: BlockCfg, h):
+    """The block's FFN on h: (out, aux), aux the MoE's auxiliary losses or
+    ``ZERO_AUX`` for a dense FFN."""
     if blk.ffn == "moe":
-        raise NotImplementedError(
-            "MoE FFNs are not ported yet: they come with the hybrid-mixer slice")
+        return moe.moe_fwd(params, blk.moe, h)
+    return mlp_fwd(params, blk.mlp, h), dict(ZERO_AUX)
 
 
 def _param_dict(leaves: Dict, trainable: bool) -> nn.ParameterDict:
@@ -84,29 +104,35 @@ def leaf_dtype(groups, name: str, dtype, trainable: bool) -> torch.dtype:
     ``groups`` (e.g. ("mixer", "out_norm")).  The training layout stores
     every leaf in ``dtype``, the parameter dtype.  The serving layout
     stores them in ``dtype``, the activation dtype, except where JAX
-    computes in float32 whatever the activation dtype: norm scales and the
-    xLSTM gates' weights and biases (``xlstm.FLOAT32_LEAVES``)."""
+    computes in float32 whatever the activation dtype: norm scales, the
+    xLSTM gates' weights and biases, Mamba's decay, step bias and skip, and
+    the MoE router (``FLOAT32_LEAVES``)."""
     if trainable:
         return dtype
-    if groups[-1].endswith("norm") or name in xlstm.FLOAT32_LEAVES:
+    if groups[-1].endswith("norm") or name in FLOAT32_LEAVES:
         return torch.float32
     return dtype
 
 
 def cast_leaves(leaves: Dict, dtype, trainable: bool, groups=()) -> Dict:
-    """``leaves`` (a group's, possibly nested) cast by ``leaf_dtype``."""
+    """``leaves`` (a group's, possibly nested) cast by ``leaf_dtype``.  A
+    leaf may be a zero-argument callable that draws it: each is drawn and
+    cast in turn, so one float32 leaf at a time is live."""
     return {k: (cast_leaves(v, dtype, trainable, groups + (k,))
                 if isinstance(v, dict)
-                else v.to(leaf_dtype(groups, k, dtype, trainable)))
+                else (v() if callable(v) else v).to(
+                    leaf_dtype(groups, k, dtype, trainable)))
             for k, v in leaves.items()}
 
 
 class Block(nn.Module):
     """One pattern position of a stage, its leaves stacked over the stage's
     repeats.  Parameter names follow the JAX pytree: ``mixer_norm.scale``,
-    ``mixer.{wq,wk,wv,wo,bq,bk,bv}`` (attention) or the xLSTM mixers'
+    ``mixer.{wq,wk,wv,wo,bq,bk,bv}`` (attention) or the recurrent mixers'
     leaves (``mixer.out_norm.scale`` nested), ``ffn_norm.scale``,
-    ``ffn.{w_up,w_gate,w_down}``.  ``trainable`` sets ``requires_grad``."""
+    ``ffn.{w_up,w_gate,w_down}`` (dense) or ``ffn.{router,we_gate,we_up,
+    we_down}`` and ``ffn.dense.*`` (MoE).  ``trainable`` sets
+    ``requires_grad``."""
 
     def __init__(self, tensors: Dict[str, Dict[str, torch.Tensor]],
                  trainable: bool = False):
@@ -118,17 +144,20 @@ class Block(nn.Module):
 def init_block(generator, cfg: ModelCfg, blk: BlockCfg, repeats: int, *,
                dtype, device, trainable: bool = False) -> Block:
     """Random block weights, stacked over ``repeats``: float32 truncated
-    normals, norm scales (ones), zero biases (the xLSTM forget gates' 3.0)
-    as in JAX, each cast once by ``leaf_dtype``: serving (``dtype`` the
-    activation dtype) keeps the scales and the xLSTM gates float32;
-    ``trainable`` (``dtype`` the parameter dtype) stores every leaf in
-    ``dtype``, with gradients."""
+    normals, norm scales (ones), zero biases (the xLSTM forget gates' 3.0,
+    Mamba's step bias and decay) as in JAX, each cast by ``leaf_dtype`` as
+    soon as it is drawn, so that the peak is the block's stored bytes plus
+    one float32 leaf (an MoE's expert tensors are 21.5 GB each in float32
+    at llama4's width): serving (``dtype`` the activation dtype) keeps
+    ``FLOAT32_LEAVES`` and the scales float32; ``trainable`` (``dtype`` the
+    parameter dtype) stores every leaf in ``dtype``, with gradients."""
     check_block(blk)
     d, m = cfg.d_model, blk.mlp
     L = (repeats,)
 
-    def dense(shape, fan_in=None):
-        return dense_init(generator, L + shape, fan_in or shape[0], device=device)
+    def dense(shape, fan_in=None):  # drawn when cast_leaves reaches it
+        return functools.partial(dense_init, generator, L + shape,
+                                 fan_in or shape[0], device=device)
 
     def zeros(shape):
         return torch.zeros(L + shape, dtype=torch.float32, device=device)
@@ -137,6 +166,8 @@ def init_block(generator, cfg: ModelCfg, blk: BlockCfg, repeats: int, *,
         mixer = xlstm.init_mlstm(generator, d, blk.xlstm, repeats, device=device)
     elif blk.mixer == "slstm":
         mixer = xlstm.init_slstm(generator, d, blk.xlstm, repeats, device=device)
+    elif blk.mixer == "mamba":
+        mixer = mamba.init_mamba(generator, d, blk.mamba, repeats, device=device)
     else:
         a = blk.attn
         kvH, hd = a.num_kv_heads, a.head_dim
@@ -155,6 +186,10 @@ def init_block(generator, cfg: ModelCfg, blk: BlockCfg, repeats: int, *,
         if m.gated:
             ffn["w_gate"] = dense((d, m.d_ff))
         tensors.update(ffn_norm={"scale": ones()}, ffn=ffn)
+    elif blk.ffn == "moe":
+        tensors.update(ffn_norm={"scale": ones()},
+                       ffn=moe.init_moe(generator, d, blk.moe, repeats,
+                                        device=device))
     return Block({g: cast_leaves(leaves, dtype, trainable, (g,))
                   for g, leaves in tensors.items()}, trainable)
 
@@ -197,22 +232,24 @@ def _layers(block: Block, repeats: int) -> List[Dict]:
 
 def block_fwd(params, cfg: ModelCfg, blk: BlockCfg, x, *, positions=None,
               enc=None):
-    """One layer (``params`` its views); returns (x, aux), aux always of
-    ``ZERO_AUX``'s structure."""
+    """One layer (``params`` its views); returns (x, aux), aux of
+    ``ZERO_AUX``'s structure: an MoE FFN's auxiliary losses, else zeros."""
     check_block(blk)
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
     if blk.mixer in RECURRENT_MIXERS:
-        m = RECURRENT_FWD[blk.mixer](params["mixer"], blk.xlstm, h)
+        m = RECURRENT_FWD[blk.mixer](params["mixer"], mixer_cfg(blk), h)
     else:
         m = attn.attention_fwd(params["mixer"], blk.attn, h,
                                positions=positions, enc=enc,
                                q_chunk=cfg.attn_q_chunk,
                                use_flash=cfg.use_flash)
     x = x + m
+    aux = dict(ZERO_AUX)
     if blk.ffn is not None:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-        x = x + mlp_fwd(params["ffn"], blk.mlp, h)
-    return x, dict(ZERO_AUX)
+        f, aux = ffn_fwd(params["ffn"], blk, h)
+        x = x + f
+    return x, aux
 
 
 _DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -274,12 +311,14 @@ def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,
 # Serving steps
 
 
+_INIT_STATE = {"mlstm": xlstm.init_mlstm_state, "slstm": xlstm.init_slstm_state,
+               "mamba": mamba.init_mamba_state}
+
+
 def _init_recurrent_state(cfg: ModelCfg, blk: BlockCfg, batch: int, dtype,
                           layers: int, device):
-    init = (xlstm.init_mlstm_state if blk.mixer == "mlstm"
-            else xlstm.init_slstm_state)
-    return init(blk.xlstm, cfg.d_model, batch, dtype, layers=layers,
-                device=device)
+    return _INIT_STATE[blk.mixer](mixer_cfg(blk), cfg.d_model, batch, dtype,
+                                  layers=layers, device=device)
 
 
 def init_stage_state_paged(cfg: ModelCfg, stage: Stage, batch: int,
@@ -321,7 +360,7 @@ def _masked_recurrent_roll(blk: BlockCfg, p, h, s, valid):
     cur = dict(s)
     ys = []
     for t in range(h.shape[1]):
-        y, new = dec(p, blk.xlstm, h[:, t:t + 1], cur)
+        y, new = dec(p, mixer_cfg(blk), h[:, t:t + 1], cur)
         v = valid[:, t]
         cur = {k: torch.where(v.reshape((-1,) + (1,) * (a.ndim - 1)), a, cur[k])
                for k, a in new.items()}
@@ -370,7 +409,7 @@ def block_step_ragged(params, cfg: ModelCfg, blk: BlockCfg, x, state, slot,
     x = x + m
     if blk.ffn is not None:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-        x = x + mlp_fwd(params["ffn"], blk.mlp, h)
+        x = x + ffn_fwd(params["ffn"], blk, h)[0]
     return x, state
 
 
@@ -404,7 +443,7 @@ def block_step_paged(params, cfg: ModelCfg, blk: BlockCfg, x, state, q_pos,
     x = x + m
     if blk.ffn is not None:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-        x = x + mlp_fwd(params["ffn"], blk.mlp, h)
+        x = x + ffn_fwd(params["ffn"], blk, h)[0]
     return x, state
 
 
@@ -504,7 +543,8 @@ def block_decode(params, cfg: ModelCfg, blk: BlockCfg, x, state, *,
     check_block(blk)
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
     if blk.mixer in RECURRENT_MIXERS:
-        m, new = RECURRENT_DECODE[blk.mixer](params["mixer"], blk.xlstm, h, state)
+        m, new = RECURRENT_DECODE[blk.mixer](params["mixer"], mixer_cfg(blk),
+                                             h, state)
         store_state(state, new)
     else:
         m, state = attn.attention_decode(params["mixer"], blk.attn, h, state,
@@ -512,7 +552,7 @@ def block_decode(params, cfg: ModelCfg, blk: BlockCfg, x, state, *,
     x = x + m
     if blk.ffn is not None:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-        x = x + mlp_fwd(params["ffn"], blk.mlp, h)
+        x = x + ffn_fwd(params["ffn"], blk, h)[0]
     return x, state
 
 

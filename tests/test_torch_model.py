@@ -178,10 +178,7 @@ def test_ragged_step_updates_state_in_place(qwen):
     assert bool((ts["layers"][0][0]["ks"] != 0).any())
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "hubert-xlarge",
-                                  "llama-3.2-vision-11b",
-                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "llama-3.2-vision-11b"])
 def test_configs_outside_the_slice_raise(arch):
     with pytest.raises(NotImplementedError):
         TM.init_params(tget(arch, smoke=True), device="cpu")

@@ -317,13 +317,14 @@ def test_serving_layout_keeps_jax_float32_leaves():
 
 
 def test_check_block_admits_only_the_xlstm_mixers():
-    """xlstm-350m passes the slice check; jamba (mamba mixers, MoE) and
-    llama4 (MoE) still raise."""
-    TM.check_supported(tget("xlstm-350m", smoke=True))
-    for arch in ("jamba-1.5-large-398b", "llama4-maverick-400b-a17b"):
-        with pytest.raises(NotImplementedError):
-            TM.check_supported(tget(arch, smoke=True))
-    assert TT.RECURRENT_MIXERS == ("mlstm", "slstm")
+    """xlstm-350m passes the slice check, and since the MoE FFN and the
+    Mamba mixer were ported so do jamba (mamba mixers, MoE), llama4 and
+    arctic (MoE); the recurrent mixers are the xLSTM pair and Mamba."""
+    for arch in ("xlstm-350m", "jamba-1.5-large-398b",
+                 "llama4-maverick-400b-a17b", "arctic-480b"):
+        TM.check_supported(tget(arch, smoke=True))
+        TM.check_supported(tget(arch))
+    assert TT.RECURRENT_MIXERS == ("mlstm", "slstm", "mamba")
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])
