@@ -35,6 +35,10 @@ Phases (every check asserts; any failure exits non-zero):
      G 8), and a verify pack at glm4-9b's (8 slots, lens up to
      2048: each slot's decode token, then its 4 draft tokens as a later
      run, as the speculative engine packs them).
+   - flash_attention at llama-3.2-vision-11b's self-attention shape (q
+     (32, 4096, 128) over k/v (8, 4096, 128): batch 1 x 8 KV heads x 4
+     query heads each, causal, bf16, "wgmma"), held against its plain
+     version, device time beside SDPA and the operation bound.
    - flash_attention at the training shape (q (24, 4096, 128) over k/v
      (4, 4096, 128): batch 2 x 2 KV heads x 6 query heads each) in f32 and
      bf16, windowed (window 512, bf16), a small odd case (S 96, G 3,
@@ -238,6 +242,36 @@ Phases (every check asserts; any failure exits non-zero):
    batch 1, bf16 activations over float32 parameters, remat "full" (no
    attention, so no ``use_flash``).  Every loss is finite and every
    parameter gets a finite gradient; per step: time; peak memory.
+6d. hubert-xlarge FULL (48 layers, d 1280, 16 heads at head_dim 80,
+   bidirectional, sinusoidal positions, the audio stub's frames from the
+   seed): three ``TrainLoop`` steps at sequence 4096, batch 2, remat
+   "full" (step time, tokens/s, peak memory; a fourth step profiled:
+   busy ms, idle share, top kernels); then one encoder forward at
+   prefill_32k's sequence (B 1, S 32768, bf16 weights, no grad): time,
+   peak memory and the model-FLOPs share (projections plus bidirectional
+   attention over 989 TFLOP/s).
+6e. llama-3.2-vision-11b: (a) FULL (40 layers, 8 cross-attention layers
+   over 1024 image tokens, bf16) through the lock-step path: B 4,
+   cache_len 2048, 512-token prompts, 64 greedy decode steps (prefill ms,
+   ms per decode step by CUDA events, tokens/s, peak memory, a profiled
+   step's busy ms and idle share); the first
+   decode step's logits agree with ``forward`` over prompt + token at its
+   last position (each row within 5e-2 of its norm), and other image
+   features change them.  (b) Training on its first period (4 self- and 1
+   cross-attention layer, the full embedding and head: 2.15 B
+   parameters), sequence 4096, batch 1, ``use_flash``: three steps with
+   float32 moments and three with int8 moments (step time, peak memory of
+   each arm, the loss difference); flash launches 4 x 3 a step (the
+   forward, the group's recomputation and each block's own: the four
+   self layers precede the cross one in the remat'd group), all "wgmma",
+   equal to the profiled kernel instances of a fourth step.
+6f. Checkpoint/resume on the card: hubert-xlarge at full width cut to 2
+   layers, sequence 1024, batch 2: 8 straight steps; a run with
+   ``save_every=3`` whose ``failure_hook`` fails once at step 5 (restore
+   step 3 and replay) to step 6; a fresh ``TrainLoop`` resuming from the
+   directory to step 8.  Every loss equals the straight run's at rtol
+   1e-5; then the synchronous host snapshot ms, the background write s
+   and the restore s of the final state.  The directory is removed.
 7. The kernel route against the chunked route of training at full width in
    f32, batch 1, sequence 4096, for qwen2-1.5b cut to 4 layers and
    gemma3-4b cut to phase 6b's 12: ``loss_fn`` agrees to rtol 1e-4 and
@@ -1090,7 +1124,58 @@ def check_flash(card: str) -> dict:
                        bound_by=b_by, library_ms=lib)
         del q, k, v, q4, k4, v4
     out["gemma"] = flash_gemma_times(card)
+    out["vision"] = flash_vision_times(card)
     return out
+
+
+# llama-3.2-vision-11b's self-attention layers at batch 1, sequence 4096: 32
+# query heads over 8 KV heads at head_dim 128 (G 4, the "wgmma" variant)
+VISION_FLASH = dict(BH=32, BKV=8, S=4096, hd=128)
+
+
+def flash_vision_times(card: str) -> dict:
+    """The kernel at llama-3.2-vision's shape, bf16, causal: held against
+    its plain version (atol 2e-2 and each row within BF16_ROW_RTOL of its
+    norm), then device and event times beside the plain version, SDPA and
+    the operation bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_inputs(**VISION_FLASH, dtype=torch.bfloat16, seed=1)
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    variant = ran(fa.launches_by_variant)
+    assert variant == "wgmma", fa.launches_by_variant
+    want = fa.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.0, atol=2e-2)
+    err = float((got.float() - want.float()).abs().max())
+    rel = row_rel_err(got, want)
+    assert rel <= BF16_ROW_RTOL, rel
+    del got, want
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters=20, warmup=3)
+    dev_ms = device_ms(lambda: fa.flash_attention(q, k, v), iters=10)
+    plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v), iters=3, warmup=1)
+    q4 = q.view(1, 32, 4096, 128)
+    k4, v4 = (t.view(1, 8, 4096, 128) for t in (k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, is_causal=True, enable_gqa=True)
+    lib = cuda_ms(sdpa, iters=20, warmup=3)
+    lib_dev = device_ms(sdpa, iters=10)
+    b_ms, b_by = flash_bound(q, k)
+    print(f"flash_attention at llama-3.2-vision-11b's self-attention shape "
+          f"{tuple(q.shape)} over {tuple(k.shape)} (G 4) bf16 causal, variant "
+          f"{variant}, on {card}: max |err| {err:.3e}, max row |err| / |ref| "
+          f"{rel:.3e} (tol atol 2e-2, row {BF16_ROW_RTOL}); kernel device "
+          f"{fmt_ms(dev_ms)} (events {ms:.4f} ms = "
+          f"{flash_flops(q) / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+          f"scaled_dot_product_attention {lib:.4f} ms (device "
+          f"{fmt_ms(lib_dev)}), bound {b_ms:.5f} ms ({b_by}, "
+          f"{flash_flops(q) / 1e9:.1f} GFLOP), share of bound "
+          f"{b_ms / ms:.4f}, kernel / library {ms / lib:.2f}")
+    del q, k, v, q4, k4, v4
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by)
 
 
 def flash_gemma_times(card: str) -> dict:
@@ -2832,11 +2917,19 @@ FLASH_KERNELS = ("flash_attention_kernel", "flash_wgmma_kernel")
 
 def flash_launches_per_step(cfg) -> int:
     """Flash-kernel launches in one training step: one per global attention
-    layer in the forward pass, and one more per such layer when remat
-    recomputes the block in the backward pass; windowed layers take the
-    chunked route, as in JAX (tests/test_torch_train.py and
-    tests/test_torch_global_theta.py hold this on the CPU)."""
-    return global_layers(cfg) * (1 if cfg.remat == "none" else 2)
+    layer in the forward pass; with remat, JAX's nested remat (a group of
+    a stage's pattern blocks checkpointed, each block again inside) runs
+    each block once more in the backward pass, and the group's
+    recomputation, which stops at its last block's input, runs every
+    block but the group's last once more again.  Windowed layers take the
+    chunked route, as in JAX (tests/test_torch_train.py,
+    tests/test_torch_global_theta.py and tests/test_torch_frontends.py
+    hold this on the CPU)."""
+    if cfg.remat == "none":
+        return global_layers(cfg)
+    return sum(st.repeats * (2 if i == len(st.pattern) - 1 else 3)
+               for st in cfg.stages for i, blk in enumerate(st.pattern)
+               if blk.mixer == "attn" and blk.attn.window is None)
 
 
 def train_full(card: str, steps: int = 4) -> dict:
@@ -3114,6 +3207,346 @@ def train_xlstm(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 6d-6f. the frontends, int8 moments and checkpoint/resume
+
+
+def release() -> None:
+    """Collect what the caller dropped and return the cached blocks to the
+    card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profiled_call(fn, label: str, card: str, top: int = 6) -> None:
+    """One more call of ``fn`` (a train or decode step) under
+    ``torch.profiler`` (CUDA activity): its wall ms, the device's busy ms
+    (kernels and copies), the idle share and the top kernels by device
+    time; "not measured" where the profiler recorded no device time."""
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    with prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name, n = {}, 0
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+            n += e.count
+    busy = sum(by_name.values())
+    if busy == 0:
+        print(f"  profiled {label} on {card}: {wall:.1f} ms wall, device time "
+              f"not measured (no records)")
+        return
+    print(f"  profiled {label} on {card}: {wall:.1f} ms wall, device busy "
+          f"{busy:.1f} ms in {n} kernels and copies, idle share "
+          f"{1 - busy / wall:.3f}; top kernels by device time:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {ms:9.3f} ms  {ms / busy:.3f}  {name[:100]}")
+
+
+HUBERT_TRAIN_SEQ, HUBERT_TRAIN_BATCH, FRONTEND_TRAIN_STEPS = 4096, 2, 3
+PREFILL_SEQ = 32768  # prefill_32k
+
+
+def encoder_flops(cfg, S: int) -> tuple:
+    """(projection FLOPs, attention FLOPs) of one forward of an encoder
+    over S positions at batch 1: 2 x every matrix's parameters x S, and
+    4 x S^2 x head_dim x heads a layer for the bidirectional scores and
+    their product with V."""
+    from repro_torch.configs import param_count
+
+    proj = 2.0 * param_count(cfg) * S
+    attn = sum(4.0 * S * S * blk.attn.head_dim * blk.attn.num_heads * st.repeats
+               for st in cfg.stages for blk in st.pattern)
+    return proj, attn
+
+
+def train_hubert(card: str) -> dict:
+    """Phase 6d: hubert-xlarge FULL training, then its encoder forward at
+    prefill_32k's sequence."""
+    from repro_torch.configs import ShapeCfg, get_config, param_count
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import TrainLoop
+
+    cfg = get_config("hubert-xlarge")
+    n = param_count(cfg)
+    steps, S, B = FRONTEND_TRAIN_STEPS, HUBERT_TRAIN_SEQ, HUBERT_TRAIN_BATCH
+    loop = TrainLoop(cfg, ShapeCfg("hubert_train", S, B, "train"), lr=3e-4,
+                     total_steps=steps, device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    hist = loop.run(steps)
+    assert all(np.isfinite(r["loss"]) for r in hist), hist
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    a = cfg.stages[0].pattern[0].attn
+    print(f"train hubert-xlarge FULL ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{a.num_heads} heads at head_dim {a.head_dim}, bidirectional, "
+          f"sinusoidal positions, "
+          f"{n / 1e9:.3f} B params, {16 * n / 1e9:.1f} GB of float32 "
+          f"parameters, gradients and moments), seq {S}, batch {B}, bf16 "
+          f"activations, remat {cfg.remat}, on {card}: peak memory "
+          f"{peak:.2f} GiB")
+    for r in hist:
+        t = r["time_s"]
+        print(f"  step {r['step']}: loss {r['loss']:.4f}, {1e3 * t:.1f} ms, "
+              f"{B * S / t:.0f} tokens/s")
+    out = dict(step_ms=[1e3 * r["time_s"] for r in hist], peak_gib=peak)
+    state = loop.final_state
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in loop.data.batch_at(steps).items()}
+    profiled_call(lambda: loop.step_fn(state, batch), "fourth train step",
+                  card)
+    del loop, state, batch
+    release()
+
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")  # bf16 serving layout
+    g = torch.Generator("cuda").manual_seed(1)
+    with torch.no_grad():
+        warm = torch.randn(1, 4096, cfg.d_model // 2, generator=g, device="cuda")
+        M.forward(params, cfg, {"feats": warm})  # cuBLAS and allocator warm-up
+        feats = torch.randn(1, PREFILL_SEQ, cfg.d_model // 2, generator=g,
+                            device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, _ = M.forward(params, cfg, {"feats": feats})
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    assert logits.shape == (1, PREFILL_SEQ, cfg.vocab_size), logits.shape
+    assert bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    proj, attn = encoder_flops(cfg, PREFILL_SEQ)
+    share = (proj + attn) / (ms / 1e3) / BF16_PEAK
+    print(f"hubert-xlarge FULL encoder forward at prefill_32k (B 1, S "
+          f"{PREFILL_SEQ}, bf16, no grad; bidirectional attention on the "
+          f"chunked softmax, q_chunk {cfg.attn_q_chunk}) on {card}: {ms:.1f} ms, "
+          f"peak memory {peak:.2f} GiB; {proj / 1e12:.1f} TFLOP of projections "
+          f"+ {attn / 1e12:.1f} TFLOP of attention = "
+          f"{(proj + attn) / BF16_PEAK * 1e3:.1f} ms at 989 TFLOP/s: "
+          f"model-FLOPs share {share:.4f}")
+    out.update(prefill_ms=ms, prefill_peak_gib=peak, prefill_share=share)
+    del params, logits, feats, warm
+    release()
+    return out
+
+
+VISION_B, VISION_CACHE, VISION_PROMPT, VISION_DECODE = 4, 2048, 512, 64
+VISION_ROW_RTOL = 5e-2  # bf16 over 40 layers: each logit row within 5 % of its norm
+
+
+def vision_decode(card: str) -> dict:
+    """Phase 6e(a): llama-3.2-vision-11b FULL through the lock-step path."""
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import model as M
+
+    cfg = get_config("llama-3.2-vision-11b")
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    B, L = VISION_B, VISION_PROMPT
+    g = torch.Generator("cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (B, L), generator=g, device="cuda")
+    nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device="cuda")
+    imgs = [torch.randn(B, cfg.n_img_tokens, cfg.d_model // 2, generator=g,
+                        device="cuda") for _ in range(2)]
+
+    def fresh(img):
+        state = M.init_decode_state(params, cfg, B, VISION_CACHE, enc_feats=img)
+        M.prefill(params, cfg, state, prompt, enc_feats=img)
+        return state
+
+    fresh(imgs[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = fresh(imgs[0])
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    first, _ = M.decode_step(params, cfg, state, nxt)
+    with torch.no_grad():
+        full, _ = M.forward(params, cfg, {"tokens": torch.cat([prompt, nxt], 1),
+                                          "img_feats": imgs[0]})
+    rel = row_rel_err(first[:, 0], full[:, -1])
+    assert rel <= VISION_ROW_RTOL, rel
+    other, _ = M.decode_step(params, cfg, fresh(imgs[1]), nxt)
+    moved = row_rel_err(other[:, 0], first[:, 0])
+    assert moved > VISION_ROW_RTOL, moved
+    del full, other
+    tok = first[:, -1].float().argmax(-1, keepdim=True)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(VISION_DECODE + 1)]
+    events[0].record()
+    for i in range(VISION_DECODE):
+        logits, _ = M.decode_step(params, cfg, state, tok)
+        tok = logits[:, -1].float().argmax(-1, keepdim=True)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(VISION_DECODE)]
+    assert int(state["pos"]) == L + 1 + VISION_DECODE
+    assert bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profiled_call(lambda: M.decode_step(params, cfg, state, tok),
+                  "decode step", card)
+    total_s = sum(step_ms) / 1e3
+    n = param_count(cfg)
+    n_cross = cfg.n_layers - global_layers(cfg)
+    print(f"llama-3.2-vision-11b FULL ({cfg.n_layers} layers, {n_cross} "
+          f"cross-attention over {cfg.n_img_tokens} image tokens, "
+          f"{n / 1e9:.2f} B params, "
+          f"{2 * n / 1e9:.1f} GB bf16) lock-step on {card}: B {B}, cache_len "
+          f"{VISION_CACHE}, {L}-token prompts: prefill {prefill_ms:.1f} ms; "
+          f"{VISION_DECODE} decode steps {np.mean(step_ms):.2f} ms a step "
+          f"(median {np.median(step_ms):.2f}, CUDA events), "
+          f"{B * VISION_DECODE / total_s:.1f} tokens/s; peak memory {peak:.2f} "
+          f"GiB; first step vs forward over prompt + token: max row |diff| / "
+          f"|ref| {rel:.3e} (tol {VISION_ROW_RTOL}); other image features "
+          f"move it {moved:.3e}")
+    out = dict(prefill_ms=prefill_ms, step_ms=float(np.mean(step_ms)),
+               peak_gib=peak, rel=rel)
+    del params, state, logits, first, imgs
+    release()
+    return out
+
+
+def vision_train(card: str) -> dict:
+    """Phase 6e(b): llama-3.2-vision-11b's first period trained with float32
+    and with int8 moments."""
+    from repro_torch.configs import ShapeCfg, Stage, get_config, param_count
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim.adamw import AdamWCfg
+    from repro_torch.train.loop import TrainLoop
+
+    full = get_config("llama-3.2-vision-11b")
+    cfg = full.replace(use_flash=True,
+                       stages=(Stage(full.stages[0].pattern, 1),))
+    assert cfg.n_layers == 5 and global_layers(cfg) == 4
+    n, steps = param_count(cfg), FRONTEND_TRAIN_STEPS
+    per_step = flash_launches_per_step(cfg)
+    assert per_step == 4 * 3, per_step  # the self layers precede the cross one
+    shape = ShapeCfg("vision_train", 4096, 1, "train")
+    out = {}
+    for sdt in ("float32", "int8"):
+        loop = TrainLoop(cfg, shape, opt_cfg=AdamWCfg(state_dtype=sdt), lr=3e-4,
+                         total_steps=steps, device="cuda", seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        hist = loop.run(steps)
+        launches, by_variant = fa.launches, dict(fa.launches_by_variant)
+        assert launches == per_step * steps == by_variant["wgmma"], \
+            (by_variant, per_step, steps)
+        assert all(np.isfinite(r["loss"]) for r in hist), hist
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        state = loop.final_state
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in loop.data.batch_at(steps).items()}
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        fa.reset_launches()
+        with prof:
+            loop.step_fn(state, batch)
+            torch.cuda.synchronize()
+        instances = sum(e.count for e in prof.key_averages()
+                        if "flash_wgmma_kernel" in e.key)
+        assert instances in (0, fa.launches) and fa.launches == per_step, \
+            (instances, fa.launches, per_step)
+        profiled = instances if instances else "not measured (no records)"
+        print(f"train llama-3.2-vision-11b's first period ({cfg.n_layers} "
+              f"layers: 4 self-attention, 1 cross-attention; {n / 1e9:.3f} B "
+              f"params), seq {shape.seq_len}, batch 1, use_flash, {sdt} "
+              f"moments, on "
+              f"{card}: flash launches {launches} = {per_step} per step x "
+              f"{steps}, by variant {by_variant}; a profiled fourth step: "
+              f"{fa.launches} launches, flash_wgmma_kernel instances "
+              f"{profiled}; peak memory {peak:.2f} GiB")
+        for r in hist:
+            print(f"  step {r['step']}: loss {r['loss']:.4f}, "
+                  f"{1e3 * r['time_s']:.1f} ms, "
+                  f"{shape.seq_len / r['time_s']:.0f} tokens/s")
+        out[sdt] = dict(losses=[r["loss"] for r in hist], peak_gib=peak,
+                        step_ms=[1e3 * r["time_s"] for r in hist])
+        del loop, state, batch, prof
+        release()
+    diff = [abs(a - b) for a, b in zip(out["float32"]["losses"],
+                                       out["int8"]["losses"])]
+    print(f"  int8 against float32 moments: loss |diff| per step "
+          f"{', '.join(f'{d:.3e}' for d in diff)}; peak memory "
+          f"{out['int8']['peak_gib']:.2f} vs {out['float32']['peak_gib']:.2f} GiB")
+    out["launches"] = per_step * steps
+    return out
+
+
+CKPT_LAYERS, CKPT_SEQ, CKPT_BATCH, CKPT_STEPS = 2, 1024, 2, 8
+
+
+def checkpoint_phase(card: str) -> dict:
+    """Phase 6f: checkpoint/resume and restore-and-replay on the card."""
+    from repro_torch.configs import ShapeCfg, Stage, get_config, param_count
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import TrainLoop
+
+    full = get_config("hubert-xlarge")
+    cfg = full.replace(stages=(Stage(full.stages[0].pattern, CKPT_LAYERS),))
+    shape = ShapeCfg("ckpt", CKPT_SEQ, CKPT_BATCH, "train")
+
+    def loop(d=None, **kw):
+        return TrainLoop(cfg, shape, lr=3e-4, total_steps=CKPT_STEPS,
+                         device="cuda", seed=0, ckpt_dir=d, **kw)
+
+    straight = [r["loss"] for r in loop().run(CKPT_STEPS)]
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        fails = []
+
+        def once(step):
+            if step == 5 and not fails:
+                fails.append(step)
+                raise RuntimeError("injected failure")
+
+        replay = loop(d, save_every=3, failure_hook=once).run(6)
+        assert fails == [5] and [r["step"] for r in replay] == [0, 1, 2, 3, 4, 3, 4, 5]
+        resumed_loop = loop(d, save_every=3)
+        resumed = resumed_loop.run(CKPT_STEPS)
+        assert [r["step"] for r in resumed] == [6, 7]
+        got = {r["step"]: r["loss"] for r in replay + resumed}
+        got = [got[s] for s in range(CKPT_STEPS)]
+        np.testing.assert_allclose(got, straight, rtol=1e-5)
+        worst = max(abs(a - b) / abs(b) for a, b in zip(got, straight))
+        state = resumed_loop.final_state
+        nbytes = sum(t.numel() * t.element_size()
+                     for t, _ in ckpt.flatten_state(state).values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer = ckpt.save_checkpoint(d, state, CKPT_STEPS + 1, background=True)
+        snap_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        writer.join()
+        write_s = time.perf_counter() - t0
+        fresh, _ = loop().init_or_restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(d, fresh, step=CKPT_STEPS + 1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for k, (t, _) in ckpt.flatten_state(fresh).items():
+            assert torch.equal(t, ckpt.flatten_state(state)[k][0]), k
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"checkpoint/resume, hubert-xlarge full width cut to {CKPT_LAYERS} "
+          f"layers ({param_count(cfg) / 1e6:.1f} M params, {nbytes / 1e9:.3f} GB "
+          f"of state), seq {CKPT_SEQ}, batch {CKPT_BATCH}, on {card}: {CKPT_STEPS} "
+          f"straight steps; a failure at step 5 restored step 3 and replayed; a "
+          f"fresh loop resumed at step 6: losses equal the straight run's, max "
+          f"relative difference {worst:.3e} (rtol 1e-5); synchronous snapshot "
+          f"{snap_ms:.1f} ms, background write {write_s:.2f} s, restore "
+          f"{restore_s:.2f} s (exact)")
+    del state, fresh
+    release()
+    return dict(worst=worst, snapshot_ms=snap_ms, write_s=write_s,
+                restore_s=restore_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3237,6 +3670,13 @@ def main() -> int:
     phase_done("phase 6b")
     train_xlstm(card)
     phase_done("phase 6c")
+    train_hubert(card)
+    phase_done("phase 6d")
+    vision_decode(card)
+    vision_train(card)
+    phase_done("phase 6e")
+    checkpoint_phase(card)
+    phase_done("phase 6f")
     train_routes(card, "qwen2-1.5b", 4)
     train_routes(card, "gemma3-4b", GEMMA_TRAIN_REPEATS)
     phase_done("phase 7")

@@ -14,7 +14,9 @@ and hand them here, so this module never sees JAX.
   (``for_training=True``) every leaf is in the parameter dtype, with grads.
   Nested groups (the mLSTM's ``out_norm``, an MoE's ``ffn.dense``) stay
   nested.
-  An untied config's ``head.out_head`` (d, V) is a matrix like the others.
+  An untied config's ``head.out_head`` (d, V) is a matrix like the others,
+  and so is a frontend's ``frontend.frontend_proj`` (d/2, d); the audio
+  tree has no ``embed``, the vision tree has both.
 - ``params_to_numpy`` / ``grads_to_numpy`` lay a ``Model``'s parameters,
   or a list of tensors in ``Model.parameters()`` order (gradients, AdamW
   moments), out like the JAX pytree, so tests compare leaf by leaf.
@@ -70,11 +72,13 @@ def params_from_numpy(tree: Dict, cfg: ModelCfg, device,
         stages.append([tfm.Block({
             g: tfm.cast_leaves(_map(leaves, leaf), dt, for_training, (g,))
             for g, leaves in bp.items()}, for_training) for bp in sp])
-    head = tree.get("head")
-    return M.Model(_tensor(tree["embed"]["tok_embed"], dt, device), stages,
-                   _tensor(tree["final_norm"]["scale"], norm_dt, device),
-                   for_training,
-                   None if head is None else _tensor(head["out_head"], dt, device))
+    def top(group, leaf, dtype=dt):
+        return (None if group not in tree
+                else _tensor(tree[group][leaf], dtype, device))
+
+    return M.Model(top("embed", "tok_embed"), stages,
+                   top("final_norm", "scale", norm_dt), for_training,
+                   top("head", "out_head"), top("frontend", "frontend_proj"))
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

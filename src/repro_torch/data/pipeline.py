@@ -2,7 +2,9 @@
 
 ``batch_at(step)`` is a pure function of (seed, step) and draws the same
 ``np.random.RandomState`` stream as the JAX package, so the two give
-identical batches.  ``iter_from`` places batches on a torch device, with a
+identical batches: for the audio frontend ``feats`` (B, S, d/2) and
+``labels % vocab``, no tokens; for the vision frontend ``img_feats`` (B,
+n_img, d/2) after the tokens.  ``iter_from`` places batches on a torch device, with a
 bounded background prefetcher building the next host batches.
 """
 from __future__ import annotations
@@ -22,10 +24,6 @@ class SyntheticLMData:
 
     def __init__(self, cfg: ModelCfg, shape: ShapeCfg, seed: int = 0,
                  batch_override: Optional[int] = None):
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.frontend} frontend batches come with the frontend "
-                f"slice of the port")
         self.cfg = cfg
         self.seq = shape.seq_len
         self.batch = batch_override or shape.global_batch
@@ -41,8 +39,16 @@ class SyntheticLMData:
         toks = (start + drift * idx) % V
         noise = rng.rand(B, S + 1) < 0.05
         toks = np.where(noise, rng.randint(0, V, size=(B, S + 1)), toks)
-        return {"tokens": toks[:, :S].astype(np.int32),
-                "labels": toks[:, 1 : S + 1].astype(np.int32)}
+        batch = {"tokens": toks[:, :S].astype(np.int32),
+                 "labels": toks[:, 1 : S + 1].astype(np.int32)}
+        if self.cfg.frontend == "audio":
+            batch = {"feats": rng.randn(B, S, self.cfg.d_model // 2)
+                     .astype(np.float32),
+                     "labels": batch["labels"] % self.cfg.vocab_size}
+        elif self.cfg.frontend == "vision":
+            batch["img_feats"] = rng.randn(
+                B, self.cfg.n_img_tokens, self.cfg.d_model // 2).astype(np.float32)
+        return batch
 
     def iter_from(self, step: int, device=None, prefetch: int = 2
                   ) -> Iterator[Dict[str, torch.Tensor]]:

@@ -2,11 +2,15 @@
 launcher's flags plus ``--device`` (``cuda`` by default; ``--device cpu``
 runs the plain PyTorch versions of the kernels) and ``--use-flash`` (sets
 the config's ``use_flash``: attention through the flash-attention kernel).
-``--ckpt-dir`` and ``--int8-opt`` raise ``NotImplementedError`` until
-``train/checkpoint.py`` and ``optim/quantized_state.py`` are ported.
+``--ckpt-dir D`` checkpoints into D (every 50 steps and the last) and
+resumes from D's latest checkpoint; ``--int8-opt`` stores the AdamW
+moments as int8 with rowwise scales.  Every config of the registry
+trains, the audio (hubert-xlarge) and vision (llama-3.2-vision-11b)
+frontends on random features from the seed.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --smoke --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge --smoke --device cpu --steps 3 --ckpt-dir D --int8-opt
 """
 import argparse
 
@@ -33,15 +37,13 @@ def main(argv=None):
                     help="torch device to train on (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.int8_opt:
-        raise NotImplementedError(
-            "--int8-opt needs optim/quantized_state.py, which is not ported yet")
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.use_flash:
         cfg = cfg.replace(use_flash=True)
     shape = (SHAPES_BY_NAME[args.shape] if args.shape
              else ShapeCfg("tiny", 64, 8, "train"))
-    loop = TrainLoop(cfg, shape, opt_cfg=AdamWCfg(), lr=args.lr,
+    opt = AdamWCfg(state_dtype="int8" if args.int8_opt else "float32")
+    loop = TrainLoop(cfg, shape, opt_cfg=opt, lr=args.lr,
                      total_steps=args.steps, microbatches=args.microbatches,
                      ckpt_dir=args.ckpt_dir, device=args.device)
     hist = loop.run(args.steps)

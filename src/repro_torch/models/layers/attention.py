@@ -1,9 +1,10 @@
 """Attention: GQA with RoPE over a paged KV pool for the two serving steps
-(the ragged pack and the two-phase (B, C) step), full-sequence causal
-attention for training and prefill, and the lock-step decode cache.
+(the ragged pack and the two-phase (B, C) step), full-sequence attention
+for training and prefill (causal or bidirectional, self- or
+cross-attention), and the lock-step decode cache.
 
-Counterpart of ``repro.models.layers.attention`` (all but cross-attention
-and the multi-device decode).  Layouts follow the JAX package: q is
+Counterpart of ``repro.models.layers.attention`` (all but the multi-device
+decode).  Layouts follow the JAX package: q is
 grouped (.., kvH, G, hd) with G = num_heads // num_kv_heads, weights are
 stored grouped — wq (D,kvH,G,hd), wo (kvH,G,hd,D) — and the pool is
 kp/vp (n_pages, page, kvH, hd) with a block table ptab (B, pps), per-slot
@@ -31,7 +32,12 @@ Differences from JAX, on purpose:
 Windowed layers (``cfg.window``) keep per-slot circular buffers of
 ``min(window, cache_len) + window_extra`` entries in the serving state, and
 a shared circular buffer of ``min(window, max_len)`` entries in the
-lock-step cache.  Cross-attention raises ``NotImplementedError``.
+lock-step cache.  Cross-attention layers (``cfg.cross``: the vision stub)
+take K/V from the encoder states ``enc``, without RoPE and never causal;
+their lock-step cache is the projected K/V of ``enc``
+(``init_cross_cache``), which decoding reads and never writes.  They have
+no serving cache: the paged serving steps take decoder token models only,
+as in JAX.
 """
 from __future__ import annotations
 
@@ -42,14 +48,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.layers.embeddings import apply_rope
 
 NEG_INF = -1e30
-
-
-def check_attn(cfg: AttnCfg) -> None:
-    """Raise for attention variants outside the ported slices."""
-    if cfg.cross:
-        raise NotImplementedError(
-            "cross-attention (vision frontend) is not ported yet: it comes "
-            "with the hybrid-mixer slice")
 
 
 def _project_q(params, cfg: AttnCfg, x):
@@ -105,8 +103,11 @@ def init_paged_cache(cfg: AttnCfg, batch: int, cache_len: int, dtype, *,
     chunk evicts the C oldest entries, so chunked prefill needs
     ``window_extra`` of at least C - 1 (the engine passes C).  The buffers
     stay in the activation dtype whatever ``kv_dtype`` is, as in JAX: int8
-    quantizes the global layers only."""
-    check_attn(cfg)
+    quantizes the global layers only.  Cross-attention layers have no
+    serving cache: ``NotImplementedError``, as JAX's
+    ``init_block_state_paged`` raises."""
+    if cfg.cross:
+        raise NotImplementedError("paged serving covers token models only")
     kvH, hd = cfg.num_kv_heads, cfg.head_dim
     L = (layers,)
     if cfg.window is not None:
@@ -167,29 +168,32 @@ def _chunked_attn(q, k, v, q_positions, k_positions, causal, window, q_chunk):
 
 def attention_fwd(params, cfg: AttnCfg, x, *, positions=None, enc=None,
                   q_chunk: int = 128, use_flash: bool = False):
-    """Full-sequence causal self-attention (training).  x: (B, S, D).
+    """Full-sequence attention (training, prefill).  x: (B, S, D); for a
+    cross-attention layer ``enc`` (B, T, D), the encoder states its K/V
+    come from, at key positions 0..T-1, without RoPE and never causal.
     Three routes, as in JAX: ``use_flash`` goes through the flash kernel
-    (``kernels.ops.flash_attention_grouped``); otherwise a full softmax when
+    (``kernels.ops.flash_attention_grouped``) only for causal
+    self-attention without a window, S == T; otherwise a full softmax when
     ``S <= 2*q_chunk`` or ``S % q_chunk != 0``, else the chunked softmax.
-    ``enc`` (cross-attention) is not ported: ``check_attn`` raises."""
-    check_attn(cfg)
+    Bidirectional layers (``causal=False``: hubert) take the last two."""
     S = x.shape[1]
     q = _project_q(params, cfg, x)
-    k, v = _project_kv(params, cfg, x)
+    k, v = _project_kv(params, cfg, enc if cfg.cross else x)
     T = k.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    if cfg.rope_theta is not None:
+    if cfg.rope_theta is not None and not cfg.cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    causal = cfg.causal and not cfg.cross
     k_positions = torch.arange(T, device=x.device)
-    if use_flash and cfg.causal and cfg.window is None and S == T:
+    if use_flash and causal and cfg.window is None and S == T:
         o = kops.flash_attention_grouped(q, k, v)
     elif S <= 2 * q_chunk or S % q_chunk != 0:
         o = _softmax_attn(q, k, v, _mask_bias(positions, k_positions,
-                                              cfg.causal, cfg.window))
+                                              causal, cfg.window))
     else:
-        o = _chunked_attn(q, k, v, positions, k_positions, cfg.causal,
+        o = _chunked_attn(q, k, v, positions, k_positions, causal,
                           cfg.window, q_chunk)
     return _out_proj(params, cfg, o)
 
@@ -290,7 +294,6 @@ def paged_attention_step(params, cfg: AttnCfg, x, cache, q_pos, valid, *,
     gathers the slots' block-table context, as in JAX.  A windowed layer
     writes into its circular buffers and attends over them.  Returns (out
     (B, C, D), cache) with the cache updated in place."""
-    check_attn(cfg)
     B, C, _ = x.shape
     q = _project_q(params, cfg, x)  # (B,C,kvH,G,hd)
     k_new, v_new = _project_kv(params, cfg, x)  # (B,C,kvH,hd)
@@ -371,7 +374,6 @@ def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,
     (``_ragged_window_attn``) on either route, as JAX computes it outside
     its kernel.  Returns (out (1, T, D), cache) with the cache updated in
     place."""
-    check_attn(cfg)
     q = _project_q(params, cfg, x)[0]  # (T,kvH,G,hd)
     k_new, v_new = (t[0] for t in _project_kv(params, cfg, x))  # (T,kvH,hd)
     if cfg.rope_theta is not None:
@@ -428,7 +430,6 @@ def init_cache(cfg: AttnCfg, batch: int, max_len: int, dtype, *,
     (a circular buffer for windowed layers), the SHARED absolute position
     of each buffer entry ``k_pos`` (cap,) (-1 = never written) and the
     next position ``pos``, a scalar per layer."""
-    check_attn(cfg)
     cap = max_len if cfg.window is None else min(cfg.window, max_len)
     L = (layers,)
     kvH, hd = cfg.num_kv_heads, cfg.head_dim
@@ -438,6 +439,14 @@ def init_cache(cfg: AttnCfg, batch: int, max_len: int, dtype, *,
         "k_pos": torch.full(L + (cap,), -1, dtype=torch.int32, device=device),
         "pos": torch.zeros(L, dtype=torch.int32, device=device),
     }
+
+
+def init_cross_cache(params, cfg: AttnCfg, enc):
+    """A cross-attention layer's lock-step cache: {"k", "v"} (B, T, kvH,
+    hd), ``enc`` (B, T, D) projected by the layer's weights (``params``
+    one layer's)."""
+    k, v = _project_kv(params, cfg, enc)
+    return {"k": k, "v": v}
 
 
 def prefill_cache(params, cfg: AttnCfg, cache, x, positions):
@@ -471,16 +480,21 @@ def attention_decode(params, cfg: AttnCfg, x, cache, *, sp_decode: bool = False)
     """One lock-step decode token for the whole batch: x (B, 1, D) at the
     layer's ``pos``.  Writes its K/V at entry ``pos % cap`` and that entry's
     ``k_pos``, advances ``pos`` (all in place, with tensor indices), then
-    attends over the buffer with the causal and window mask.  Returns (out
-    (B, 1, D), cache).  ``sp_decode`` (sequence-sharded decode over a mesh)
-    raises ``NotImplementedError``."""
-    check_attn(cfg)
-    if sp_decode:
+    attends over the buffer with the causal and window mask.  A
+    cross-attention layer attends over its cache's projected encoder K/V
+    with a zero bias over all T entries and leaves the cache as it is.
+    Returns (out (B, 1, D), cache).  ``sp_decode`` (sequence-sharded
+    decode over a mesh) raises ``NotImplementedError``."""
+    if sp_decode and not cfg.cross:
         raise NotImplementedError(
             "sequence-parallel decode (sp_decode) is not ported yet: it comes "
             "with multi-GPU serving (ROADMAP.md, Queue 1)")
-    pos = cache["pos"].reshape(1).clone()  # this token's position
     q = _project_q(params, cfg, x)  # (B,1,kvH,G,hd)
+    if cfg.cross:
+        bias = torch.zeros((1, cache["k"].shape[1]), device=x.device)
+        return _out_proj(params, cfg, _softmax_attn(q, cache["k"], cache["v"],
+                                                    bias)), cache
+    pos = cache["pos"].reshape(1).clone()  # this token's position
     k_new, v_new = _project_kv(params, cfg, x)  # (B,1,kvH,hd)
     if cfg.rope_theta is not None:
         q = apply_rope(q, pos, cfg.rope_theta)

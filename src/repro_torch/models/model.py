@@ -20,13 +20,20 @@ The serving state is a plain pytree of tensors ({"layers": [[cache per
 pattern position] per stage]}) that every serving function here updates in
 place; the lock-step decode state adds a top-level scalar "pos".
 
-Supported: decoder token models whose blocks are attention — global, or
-windowed (sliding-window, as gemma3's local layers) — or recurrent mixers
-(mLSTM, sLSTM: xlstm-350m; Mamba: jamba), each with a dense FFN, an MoE
-FFN (llama4, arctic, jamba) or none, with a tied or an untied output head
-(``head.out_head``, (d, V), as JAX's ``{"head": {"out_head"}}``).
-Frontends, encoders, cross-attention and absolute position encodings
-raise ``NotImplementedError``.
+Supported: every config of the registry.  Blocks are attention — global,
+windowed (sliding-window, as gemma3's local layers), bidirectional
+(hubert) or cross-attention over the vision stub's features — or recurrent
+mixers (mLSTM, sLSTM: xlstm-350m; Mamba: jamba), each with a dense FFN, an
+MoE FFN (llama4, arctic, jamba) or none, with a tied or an untied output
+head (``head.out_head``, (d, V), as JAX's ``{"head": {"out_head"}}``).
+The audio frontend (hubert) replaces the embedding with
+``frontend.frontend_proj`` over ``batch["feats"]`` and always has a head;
+the vision frontend (llama-3.2-vision) keeps the embedding and projects
+``batch["img_feats"]`` into the cross-attention layers' ``enc``;
+``abs_pos="sinusoidal"`` adds sinusoidal encodings to the inputs on every
+path JAX adds them.  As in JAX, only the training forward and the
+lock-step decode take frontend configs: the paged serving steps (and so
+the engines) serve decoder token models (``check_servable``).
 """
 from __future__ import annotations
 
@@ -49,29 +56,42 @@ MOE_Z_WEIGHT = 1e-3
 
 
 def check_supported(cfg: ModelCfg) -> None:
-    """Raise ``NotImplementedError`` for any config outside the slice."""
-    if cfg.frontend is not None or cfg.is_encoder:
+    """Raise ``NotImplementedError`` for any config outside the port."""
+    if cfg.abs_pos not in ("none", "sinusoidal"):
         raise NotImplementedError(
-            "audio/vision frontends and encoders are not ported: the ported "
-            "slices cover decoder token models")
-    if cfg.abs_pos != "none":
-        raise NotImplementedError("absolute position encodings are not ported yet")
+            f"abs_pos={cfg.abs_pos!r}: the JAX package computes only "
+            "sinusoidal absolute positions")
     for st in cfg.stages:
         for blk in st.pattern:
             tfm.check_block(blk)
 
 
+def check_servable(cfg: ModelCfg) -> None:
+    """Raise ``NotImplementedError`` for configs the serving paths do not
+    take: frontends and encoders (JAX ``init_paged_state``; JAX's
+    reference engine fails on them too)."""
+    check_supported(cfg)
+    if cfg.frontend is not None or cfg.is_encoder:
+        raise NotImplementedError("paged serving covers decoder token models")
+
+
 class Model(nn.Module):
     """Parameter container mirroring the JAX pytree (see module docstring);
-    ``out_head`` (untied configs only) becomes ``head.out_head``.
-    ``trainable`` sets ``requires_grad`` of the embedding, final norm and
-    head (blocks carry their own)."""
+    ``out_head`` becomes ``head.out_head`` and ``frontend_proj`` (audio and
+    vision) ``frontend.frontend_proj``; ``tok_embed`` is None for the
+    audio frontend, which has no embedding.  ``trainable`` sets
+    ``requires_grad`` of the embedding, frontend, final norm and head
+    (blocks carry their own)."""
 
-    def __init__(self, tok_embed: torch.Tensor, stages, final_scale: torch.Tensor,
-                 trainable: bool = False, out_head: torch.Tensor = None):
+    def __init__(self, tok_embed, stages, final_scale: torch.Tensor,
+                 trainable: bool = False, out_head: torch.Tensor = None,
+                 frontend_proj: torch.Tensor = None):
         super().__init__()
-        self.embed = nn.ParameterDict(
+        self.embed = None if tok_embed is None else nn.ParameterDict(
             {"tok_embed": nn.Parameter(tok_embed, requires_grad=trainable)})
+        self.frontend = None if frontend_proj is None else nn.ParameterDict(
+            {"frontend_proj": nn.Parameter(frontend_proj,
+                                           requires_grad=trainable)})
         self.stages = nn.ModuleList(nn.ModuleList(st) for st in stages)
         self.final_norm = nn.ParameterDict(
             {"scale": nn.Parameter(final_scale, requires_grad=trainable)})
@@ -89,33 +109,74 @@ def init_params(cfg: ModelCfg, *, generator: torch.Generator = None,
     fan-in dense weights, truncated-normal embedding, unit norm scales,
     zero biases), drawn from ``generator`` on ``device`` (default: seed 0
     on ``cuda``), in the serving layout or, with ``for_training``, the
-    training layout (module docstring).  Not the JAX bits: tests bridge
-    JAX's weights instead."""
+    training layout (module docstring).  The frontend projection is
+    (d_model/2, d_model), and untied and audio configs have a head, as in
+    JAX.  Not the JAX bits: tests bridge JAX's weights instead."""
     check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     dt = getattr(torch, cfg.param_dtype if for_training else cfg.dtype)
-    tok = embed_init(generator, (cfg.vocab_size, cfg.d_model), device=dev).to(dt)
+    tok = front = head = None
+    if cfg.frontend != "audio":
+        tok = embed_init(generator, (cfg.vocab_size, cfg.d_model),
+                         device=dev).to(dt)
+    if cfg.frontend is not None:
+        front = emb.init_frontend(generator, cfg.d_model // 2, cfg.d_model,
+                                  device=dev)["frontend_proj"].to(dt)
     stages = [[tfm.init_block(generator, cfg, blk, st.repeats, dtype=dt,
                               device=dev, trainable=for_training)
                for blk in st.pattern]
               for st in cfg.stages]
     final = torch.ones(cfg.d_model, device=dev,
                        dtype=dt if for_training else torch.float32)
-    head = None
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.frontend == "audio":
         head = dense_init(generator, (cfg.d_model, cfg.vocab_size),
                           device=dev).to(dt)
-    return Model(tok, stages, final, trainable=for_training, out_head=head)
+    return Model(tok, stages, final, trainable=for_training, out_head=head,
+                 frontend_proj=front)
 
 
 def _logits(params: Model, cfg: ModelCfg, x: torch.Tensor) -> torch.Tensor:
-    """The output head: ``head.out_head`` for untied configs, the
-    embedding's transpose for tied ones (JAX ``model.py:78, 138``)."""
-    if cfg.tie_embeddings:
+    """The output head: ``head.out_head`` where there is one (untied
+    configs, audio), the embedding's transpose otherwise (JAX
+    ``model.py:78, 138``)."""
+    if params.head is None:
         return emb.logits_from_hidden({}, x, tied_embed=params.embed["tok_embed"])
     return emb.logits_from_hidden(params.head, x)
+
+
+def _add_positions(cfg: ModelCfg, x: torch.Tensor, positions) -> torch.Tensor:
+    """x plus the sinusoidal encodings at ``positions`` ((S,) or (B, S),
+    ints) where ``cfg.abs_pos`` asks for them, cast to x's dtype before
+    the add, as JAX adds them."""
+    if cfg.abs_pos == "sinusoidal":
+        x = x + emb.sinusoidal_at(positions, cfg.d_model, x.dtype)
+    return x
+
+
+def encode_images(params: Model, cfg: ModelCfg, img_feats):
+    """The vision stub's encoder states: ``img_feats`` (B, n_img, d/2)
+    projected to (B, n_img, d) in the activation dtype; None for other
+    configs."""
+    if cfg.frontend != "vision":
+        return None
+    return emb.apply_frontend(params.frontend, img_feats,
+                              getattr(torch, cfg.dtype))
+
+
+def _embed_inputs(params: Model, cfg: ModelCfg, batch):
+    """(x (B, S, D), enc or None), JAX ``_embed_inputs``: the audio
+    frontend over ``batch["feats"]`` or the embedding of
+    ``batch["tokens"]``, plus sinusoidal positions 0..S-1 where
+    ``abs_pos`` says; the vision frontend over ``batch["img_feats"]``."""
+    dt = getattr(torch, cfg.dtype)
+    if cfg.frontend == "audio":
+        x = emb.apply_frontend(params.frontend, batch["feats"], dt)
+    else:
+        x = emb.embed_tokens(params.embed, batch["tokens"].long(), dt)
+    x = _add_positions(cfg, x, torch.arange(x.shape[1], device=x.device))
+    return x, encode_images(params, cfg, batch.get("img_feats"))
 
 
 # ---------------------------------------------------------------------------
@@ -123,15 +184,16 @@ def _logits(params: Model, cfg: ModelCfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
-    """batch["tokens"]: (B, S) ints -> (logits (B, S, V) in the activation
-    dtype, aux dict)."""
+    """batch["tokens"]: (B, S) ints — for the audio frontend
+    batch["feats"]: (B, S, d/2) instead; the vision frontend adds
+    batch["img_feats"]: (B, n_img, d/2) — -> (logits (B, S, V) in the
+    activation dtype, aux dict)."""
     check_supported(cfg)
-    x = emb.embed_tokens(params.embed, batch["tokens"].long(),
-                         getattr(torch, cfg.dtype))
+    x, enc = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = dict(tfm.ZERO_AUX)
     for st, sp in zip(cfg.stages, params.stages):
-        x, a = tfm.stage_fwd(sp, cfg, st, x, positions=positions)
+        x, a = tfm.stage_fwd(sp, cfg, st, x, positions=positions, enc=enc)
         aux = tfm._add_aux(aux, a)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return _logits(params, cfg, x), aux
@@ -176,8 +238,9 @@ def init_paged_state(params: Model, cfg: ModelCfg, batch: int, cache_len: int,
     tracks its own position.  ``kv_dtype`` (None | "float32" | "bfloat16" |
     "int8") selects the pools' storage; int8 pools carry float32 scale
     pools.  ``window_extra`` must be at least ``prefill_chunk - 1`` when
-    prefill is chunked (see ``attention.init_paged_cache``)."""
-    check_supported(cfg)
+    prefill is chunked (see ``attention.init_paged_cache``).  Frontend and
+    encoder configs raise ``NotImplementedError``, as in JAX."""
+    check_servable(cfg)
     dt = getattr(torch, cfg.dtype)
     return {"layers": [tfm.init_stage_state_paged(
         cfg, st, batch, cache_len, dt, page_size=page_size, n_pages=n_pages,
@@ -195,6 +258,7 @@ def paged_step(params: Model, cfg: ModelCfg, state, tokens, q_pos, valid, *,
     Returns (logits, state), the state updated in place."""
     dt = getattr(torch, cfg.dtype)
     x = emb.embed_tokens(params.embed, tokens.long(), dt)  # (B,C,D)
+    x = _add_positions(cfg, x, q_pos)
     for st, sp, ss in zip(cfg.stages, params.stages, state["layers"]):
         x, _ = tfm.stage_step_paged(sp, cfg, st, x, ss, q_pos, valid,
                                     flash_decode=flash_decode)
@@ -219,6 +283,7 @@ def ragged_step(params: Model, cfg: ModelCfg, state, tokens, slot, q_pos,
     head."""
     dt = getattr(torch, cfg.dtype)
     x = emb.embed_tokens(params.embed, tokens.long()[None], dt)  # (1,T,D)
+    x = _add_positions(cfg, x, q_pos)
     for st, sp, ss in zip(cfg.stages, params.stages, state["layers"]):
         x, _ = tfm.stage_step_ragged(sp, cfg, st, x, ss, slot, q_pos, seq_idx,
                                      valid, width=width,
@@ -319,16 +384,20 @@ def insert_kv_page(cfg: ModelCfg, state, page_data, page: int) -> Dict:
 
 
 def init_decode_state(params: Model, cfg: ModelCfg, batch: int,
-                      cache_len: int) -> Dict:
+                      cache_len: int, enc_feats=None) -> Dict:
     """Fresh lock-step decode state on the params' device: one
-    ``attention.init_cache`` per layer and the top-level position "pos"
-    (a 0-d int32 tensor), which every slot shares."""
+    ``attention.init_cache`` per self-attention layer, the projected K/V of
+    the vision stub's features per cross-attention layer
+    (``attention.init_cross_cache`` over ``enc_feats`` (B, n_img, d/2),
+    which vision configs need), and the top-level position "pos" (a 0-d
+    int32 tensor), which every slot shares."""
     check_supported(cfg)
     dt = getattr(torch, cfg.dtype)
     dev = params.device
-    return {"layers": [tfm.init_stage_state(cfg, st, batch, cache_len, dt,
-                                            device=dev)
-                       for st in cfg.stages],
+    enc = encode_images(params, cfg, enc_feats)
+    return {"layers": [tfm.init_stage_state(sp, cfg, st, batch, cache_len, dt,
+                                            enc, device=dev)
+                       for st, sp in zip(cfg.stages, params.stages)],
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -336,10 +405,13 @@ def init_decode_state(params: Model, cfg: ModelCfg, batch: int,
 def decode_step(params: Model, cfg: ModelCfg, state, tokens_t, *,
                 sp_decode: bool = False):
     """One lock-step decode token per batch row: tokens_t (B, 1) ints ->
-    (logits (B, 1, V), state), the state updated in place (every layer's
-    cache and "pos" advance by one)."""
+    (logits (B, 1, V), state), the state updated in place (every
+    self-attention layer's cache and "pos" advance by one; cross-attention
+    caches stay).  Sinusoidal positions, where ``abs_pos`` says, are taken
+    at "pos"."""
     dt = getattr(torch, cfg.dtype)
     x = emb.embed_tokens(params.embed, tokens_t.long(), dt)
+    x = _add_positions(cfg, x, state["pos"].reshape(1))
     for st, sp, ss in zip(cfg.stages, params.stages, state["layers"]):
         x, _ = tfm.stage_decode(sp, cfg, st, x, ss, sp_decode=sp_decode)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
@@ -348,27 +420,31 @@ def decode_step(params: Model, cfg: ModelCfg, state, tokens_t, *,
 
 
 @torch.no_grad()
-def prefill(params: Model, cfg: ModelCfg, state, tokens) -> Dict:
+def prefill(params: Model, cfg: ModelCfg, state, tokens, enc_feats=None) -> Dict:
     """Teacher-forced prompt ingestion into a lock-step state, in place:
-    tokens (B, S).  Each attention layer runs the full-sequence attention
-    (the chunked route, never flash, as in JAX) for the hidden states and
-    writes its cache (``attention.prefill_cache``); a recurrent layer rolls
-    its state over the prompt (``_roll_recurrent``); every "pos" becomes
-    S."""
-    dt = getattr(torch, cfg.dtype)
-    x = emb.embed_tokens(params.embed, tokens.long(), dt)
+    tokens (B, S), and for vision configs ``enc_feats`` (B, n_img, d/2).
+    Each self-attention layer runs the full-sequence attention (the
+    chunked route, never flash, as in JAX) for the hidden states and
+    writes its cache (``attention.prefill_cache``); a cross-attention
+    layer attends over the projected features and leaves its cache as
+    ``init_decode_state`` made it; a recurrent layer rolls its state over
+    the prompt (``_roll_recurrent``); every "pos" becomes S."""
+    x, enc = _embed_inputs(params, cfg, {"tokens": tokens,
+                                         "img_feats": enc_feats})
     S = tokens.shape[1]
     positions = torch.arange(S, device=x.device)
     for st, sp, ss in zip(cfg.stages, params.stages, state["layers"]):
-        x = _stage_prefill(sp, cfg, st, x, ss, positions)
+        x = _stage_prefill(sp, cfg, st, x, ss, positions, enc)
     state["pos"].fill_(S)
     return state
 
 
-def _stage_prefill(params, cfg: ModelCfg, stage, x, states, positions):
+def _stage_prefill(params, cfg: ModelCfg, stage, x, states, positions, enc):
     """One stage of ``prefill``: the layer loop of ``stage_step_ragged``,
-    each attention layer's output from ``attention_fwd`` and its cache from
-    ``prefill_cache``, each recurrent layer's from ``_roll_recurrent``."""
+    each self-attention layer's output from ``attention_fwd`` and its
+    cache from ``prefill_cache``, each cross-attention layer's output from
+    ``attention_fwd`` over ``enc``, each recurrent layer's from
+    ``_roll_recurrent``."""
     for r in range(stage.repeats):
         for i, blk in enumerate(stage.pattern):
             tfm.check_block(blk)
@@ -376,6 +452,9 @@ def _stage_prefill(params, cfg: ModelCfg, stage, x, states, positions):
             h = rmsnorm(bp["mixer_norm"], x, cfg.norm_eps)
             if blk.mixer in tfm.RECURRENT_MIXERS:
                 x = x + _roll_recurrent(blk, bp["mixer"], h, cache)
+            elif blk.mixer == "cross_attn":
+                x = x + attn.attention_fwd(bp["mixer"], blk.attn, h, enc=enc,
+                                           q_chunk=cfg.attn_q_chunk)
             else:
                 x = x + attn.attention_fwd(bp["mixer"], blk.attn, h,
                                            positions=positions,

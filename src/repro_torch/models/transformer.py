@@ -9,9 +9,10 @@ views.  The views share storage with the stacked tensors, so the in-place
 cache writes of each layer land in the stacked state, and the gradients of
 the training forward land in the stacked parameters.
 
-Attention blocks (global or windowed) and the recurrent mixers (mLSTM,
-sLSTM, Mamba), each with a dense FFN, an MoE FFN or none, are ported;
-cross-attention raises ``NotImplementedError``.  A stage's layer loop runs
+Attention blocks (global, windowed, bidirectional or cross-attention
+over the vision stub's encoder states ``enc``) and the recurrent mixers
+(mLSTM, sLSTM, Mamba), each with a dense FFN, an MoE FFN or none, are
+ported.  A stage's layer loop runs
 repeat r over every pattern position before repeat r + 1, JAX's scan order.
 A recurrent mixer's serving and decode state is advanced functionally, one
 step at a time, and written back into its layer's views once the step's
@@ -67,13 +68,9 @@ def _add_aux(a, b):
 
 
 def check_block(blk: BlockCfg) -> None:
-    """Raise for blocks outside the ported slices."""
-    if blk.mixer == "attn":
-        attn.check_attn(blk.attn)
-    elif blk.mixer not in RECURRENT_MIXERS:
-        raise NotImplementedError(
-            f"mixer {blk.mixer!r} is not ported yet: cross-attention comes "
-            "with a later slice")
+    """Raise for a mixer the JAX package does not have either."""
+    if blk.mixer not in ("attn", "cross_attn") + RECURRENT_MIXERS:
+        raise ValueError(f"unknown mixer {blk.mixer!r}")
 
 
 def mixer_cfg(blk: BlockCfg):
@@ -233,7 +230,8 @@ def _layers(block: Block, repeats: int) -> List[Dict]:
 def block_fwd(params, cfg: ModelCfg, blk: BlockCfg, x, *, positions=None,
               enc=None):
     """One layer (``params`` its views); returns (x, aux), aux of
-    ``ZERO_AUX``'s structure: an MoE FFN's auxiliary losses, else zeros."""
+    ``ZERO_AUX``'s structure: an MoE FFN's auxiliary losses, else zeros.
+    A cross-attention layer attends over ``enc``."""
     check_block(blk)
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
     if blk.mixer in RECURRENT_MIXERS:
@@ -284,17 +282,18 @@ def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,
     JAX's ``_barrier`` serializes FSDP parameter gathers; on one device it
     is the identity and has no counterpart here, nor has the ``lshard`` of
     the saved boundaries (``seq_shard_residuals``), a no-op without a
-    mesh."""
+    mesh.  ``enc`` (the cross-attention layers' encoder states) goes into
+    each remat'd call as an argument, beside the hidden states."""
 
-    def one_block(block_params, y, blk):
+    def one_block(block_params, y, e, blk):
         return block_fwd(block_params, cfg, blk, y, positions=positions,
-                         enc=enc)
+                         enc=e)
 
-    def group(y, group_params):
+    def group(y, group_params, e):
         aux = dict(ZERO_AUX)
         for i, blk in enumerate(stage.pattern):
             blk_fn = _remat(functools.partial(one_block, blk=blk), cfg.remat)
-            y, a = blk_fn(group_params[i], y)
+            y, a = blk_fn(group_params[i], y, e)
             aux = _add_aux(aux, a)
         return y, aux
 
@@ -302,7 +301,7 @@ def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,
     views = [_layers(b, stage.repeats) for b in params]
     aux = dict(ZERO_AUX)
     for r in range(stage.repeats):
-        x, a = group(x, [v[r] for v in views])
+        x, a = group(x, [v[r] for v in views], enc)
         aux = _add_aux(aux, a)
     return x, aux
 
@@ -519,17 +518,25 @@ def rollback_stage_slots(stage: Stage, states: List[dict], mask, new_len):
 # Lock-step decode (the reference engine)
 
 
-def init_stage_state(cfg: ModelCfg, stage: Stage, batch: int, cache_len: int,
-                     dtype, *, device=None):
+def init_stage_state(params, cfg: ModelCfg, stage: Stage, batch: int,
+                     cache_len: int, dtype, enc=None, *, device=None):
     """One lock-step cache per pattern position (``attention.init_cache``,
     or a recurrent layer's fresh state), stacked over the repeats (JAX
-    ``init_stage_state``)."""
+    ``init_stage_state``).  A cross-attention position's cache is ``enc``
+    projected by each repeat's own weights (``params``, the stage's
+    stacked blocks), stacked: JAX's ``vmap`` over the stacked parameters
+    (``transformer.py:226-240``)."""
     out = []
-    for blk in stage.pattern:
+    for i, blk in enumerate(stage.pattern):
         check_block(blk)
         if blk.mixer in RECURRENT_MIXERS:
             out.append(_init_recurrent_state(cfg, blk, batch, dtype,
                                              stage.repeats, device))
+        elif blk.mixer == "cross_attn":
+            reps = [attn.init_cross_cache(layer_view(params[i], r)["mixer"],
+                                          blk.attn, enc)
+                    for r in range(stage.repeats)]
+            out.append({k: torch.stack([c[k] for c in reps]) for k in reps[0]})
         else:
             out.append(attn.init_cache(blk.attn, batch, cache_len, dtype,
                                        layers=stage.repeats, device=device))

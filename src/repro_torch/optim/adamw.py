@@ -1,12 +1,13 @@
-"""AdamW with float32 moments — ``repro.optim.adamw``.
+"""AdamW with float32 or int8-quantized moments — ``repro.optim.adamw``.
 
 Parameters, gradients and moments are lists of tensors in one order (a
 ``Model``'s ``parameters()`` order); the state is {"m": [...], "v": [...],
-"step": 0-dim int32 tensor}.  Where JAX returns new arrays, this module
-updates IN PLACE under ``torch.no_grad()`` — parameters, moments and, when
-clipping, the gradients — so a step holds no second copy of any of them.
-int8 moment storage (``state_dtype="int8"``) comes with
-``optim/quantized_state.py`` in a later slice.
+"step": 0-dim int32 tensor}, each moment a float32 tensor or, with
+``state_dtype="int8"``, {"q": int8, "qscale": float32 rowwise}
+(``optim.quantized_state``).  Where JAX returns new arrays, this module
+updates IN PLACE under ``torch.no_grad()`` — parameters, moments (an int8
+moment's ``q`` and ``qscale``) and, when clipping, the gradients — so a
+step holds no second copy of any of them.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from repro_torch.optim.quantized_state import dequantize, is_quantized, quantize
 
 
 @dataclass(frozen=True)
@@ -26,26 +29,24 @@ class AdamWCfg:
     state_dtype: str = "float32"  # "float32" | "int8"
 
 
-def _check_state_dtype(cfg: AdamWCfg) -> None:
-    if cfg.state_dtype != "float32":
-        raise NotImplementedError(
-            f"state_dtype={cfg.state_dtype!r}: int8 moments come with "
-            "optim/quantized_state.py, which is not ported yet")
-
-
 def _leaves(params):
     return list(params.parameters()) if isinstance(params, torch.nn.Module) \
         else list(params)
 
 
+def _zeros_like_state(p: torch.Tensor, cfg: AdamWCfg):
+    z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return quantize(z) if cfg.state_dtype == "int8" else z
+
+
 def init_opt_state(params, cfg: AdamWCfg):
-    """Zero float32 moments for a ``Model`` or a list of tensors."""
-    _check_state_dtype(cfg)
+    """Zero moments for a ``Model`` or a list of tensors: float32, or
+    quantized zeros with ``state_dtype="int8"``."""
     leaves = _leaves(params)
     dev = leaves[0].device if leaves else None
     return {
-        "m": [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves],
-        "v": [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves],
+        "m": [_zeros_like_state(p, cfg) for p in leaves],
+        "v": [_zeros_like_state(p, cfg) for p in leaves],
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
@@ -69,8 +70,8 @@ def clip_by_global_norm(grads, max_norm):
 def apply_updates(params, grads, state, cfg: AdamWCfg, lr):
     """One AdamW step, IN PLACE on ``params`` (a ``Model`` or list of
     tensors), ``state`` and (when clipping) ``grads``.  ``lr`` is a float
-    or a 0-dim tensor.  Returns (params, state, metrics)."""
-    _check_state_dtype(cfg)
+    or a 0-dim tensor.  An int8 moment is dequantized, updated in float32
+    and requantized, as JAX does.  Returns (params, state, metrics)."""
     metrics = {}
     if cfg.grad_clip is not None:
         grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
@@ -80,10 +81,16 @@ def apply_updates(params, grads, state, cfg: AdamWCfg, lr):
     bc2 = 1 - cfg.b2 ** step.float()
     for p, g, m, v in zip(_leaves(params), grads, state["m"], state["v"]):
         gf = g.float()
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
-        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        mf = dequantize(m) if is_quantized(m) else m
+        vf = dequantize(v) if is_quantized(v) else v
+        mf.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+        vf.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
+        u = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
         pf = p.float()
         p.copy_(pf - lr * (u + cfg.weight_decay * pf))
+        for moment, new in ((m, mf), (v, vf)):
+            if is_quantized(moment):
+                for k, t in quantize(new).items():
+                    moment[k].copy_(t)
     state["step"] = step
     return params, state, metrics

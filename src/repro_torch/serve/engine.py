@@ -220,7 +220,7 @@ class ServeEngine:
         # (no page holds a windowed layer's state) need every layer to be
         # paged global attention; a windowed model serves with them off,
         # silently, and stats["spec_k"] reports 0
-        M.check_supported(cfg)
+        M.check_servable(cfg)
         self._has_paged = any(blk.mixer == "attn" and blk.attn.window is None
                               for st in cfg.stages for blk in st.pattern)
         all_global = self._has_paged and all(

@@ -33,7 +33,7 @@ class ReferenceEngine:
     def __init__(self, params: M.Model, cfg: ModelCfg, *, batch_size: int = 4,
                  cache_len: int = 256, greedy: bool = True, device=None):
         self.device = resolve_device(device)
-        M.check_supported(cfg)
+        M.check_servable(cfg)
         self.params = params.to(self.device)
         self.cfg = cfg
         self.B = batch_size

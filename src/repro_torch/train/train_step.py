@@ -27,8 +27,9 @@ def init_train_state(generator: torch.Generator, cfg: ModelCfg,
 def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg, lr_fn: Callable,
                     microbatches: int = 1):
     """-> train_step(state, batch) -> (state, metrics).  With
-    ``microbatches > 1`` the batch splits along its leading axis and the
-    gradients accumulate in the parameter dtype, as in JAX."""
+    ``microbatches > 1`` every key of the batch (tokens or audio
+    features, labels, image features) splits along its leading axis and
+    the gradients accumulate in the parameter dtype, as in JAX."""
 
     def train_step(state, batch):
         params = state["params"]
@@ -37,7 +38,7 @@ def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg, lr_fn: Callable,
             loss, mets = M.loss_fn(params, cfg, batch)
             grads = list(torch.autograd.grad(loss, leaves))
         else:
-            n = batch["tokens"].shape[0] // microbatches
+            n = next(iter(batch.values())).shape[0] // microbatches
             grads = [torch.zeros_like(p) for p in leaves]
             ls, ms = [], []
             for i in range(microbatches):
