@@ -281,6 +281,25 @@ Phases (every check asserts; any failure exits non-zero):
    matmul sweep (cuBLAS and the matmul kernel, nproc 1 to 64, N =
    16384/sqrt(nproc), f32) and the 15-row memory-mode table (8192^3 f32),
    with the matmul kernel's launches counted, all through its float32 routes.
+9. The cost model and the serving sweep (``repro_torch.core``,
+   ``repro_torch.benchmarks.serve_sweep``): (a) the port's ``H100`` spec
+   beside the card's name, power limit and memory and beside phase 4c's
+   mover H2D rate (unmeasured when 4c printed no mover copy); (b) each of
+   phase 4's captured arms (ragged and two-phase, bf16 and int8 pools)
+   against ``mixed_bound``: every tick's pack (decode tokens, prefill
+   tokens, the mean context of its slots) was recorded in phase 4 by
+   wrappers this script puts around the engine's pack methods, and the
+   bound's summed ``tick_s`` at the served (depth-cut) config, the arm's
+   page size and pools, over the arm's wall time and profiled busy time
+   is its bound share, which must lie in (0, 1], printed with the
+   dominant term; (c) ``serve_sweep.main(["--smoke", ...])`` and
+   ``main(["--preempt-only", ...])`` on the card: every scenario's
+   transcripts identical, drained, no page leaked on either tier, one
+   trace; the rows and the tuned config printed; (d)
+   ``select_serve_defaults("qwen2-1.5b")`` at full width with the host
+   tier and speculation axes: the winner and its criteria; (e)
+   ``memory_model.estimate`` for phase 6's training run beside its
+   measured peak (no gate: a model).
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1265,12 +1284,54 @@ def cut_depth(cfg, layers: int):
     return cfg.replace(stages=(Stage(cfg.stages[0].pattern, layers),))
 
 
+def record_packs(eng, packs: list) -> None:
+    """Append to ``packs`` every step's pack as (decode tokens, prefill
+    tokens, mean context of the pack's slots), read from the arrays the
+    engine's pack methods return (wrapped here; no engine feature): a
+    slot's context is its last packed position + 1.  A ragged pack's
+    decode tokens are its sampled slots (phase 4 drafts nothing); a
+    two-phase prefill pack holds prefill tokens only, a decode pack decode
+    tokens only.  A tick that packs nothing runs no step and records
+    nothing."""
+    def mean_ctx(slot, q_pos, valid):
+        return float(np.mean([q_pos[valid & (slot == b)].max() + 1
+                              for b in np.unique(slot[valid])]))
+
+    def ragged(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            (tokens, slot, q_pos, _, valid, _), n, sampling, drafted = out
+            assert not drafted, "phase 4 packs no drafts"
+            if n:
+                packs.append((len(sampling), n - len(sampling),
+                              mean_ctx(slot, q_pos, valid)))
+            return out
+        return run
+
+    def two_phase(fn, decode: bool):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            _, q_pos, valid = out
+            slot = np.broadcast_to(np.arange(valid.shape[0])[:, None],
+                                   valid.shape)
+            n = int(valid.sum())
+            if n:
+                ctx = mean_ctx(slot.ravel(), q_pos.ravel(), valid.ravel())
+                packs.append((n, 0, ctx) if decode else (0, n, ctx))
+            return out
+        return run
+
+    eng._pack_ragged = ragged(eng._pack_ragged)
+    eng._pack_prefill = two_phase(eng._pack_prefill, decode=False)
+    eng._pack_decode = two_phase(eng._pack_decode, decode=True)
+
+
 class RecordsLost(AssertionError):
     """A profiled run recorded fewer kernel instances than were launched."""
 
 
 def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
-               captured: bool = True, profile=None) -> dict:
+               captured: bool = True, profile=None, packs=None) -> dict:
     """Serve the phase-4 workload once, through the ragged engine or, with
     ``ragged=False``, the two-phase engine (prefill chunks, then decode
     ticks through the paged flash-decode kernel); with ``captured`` each
@@ -1282,7 +1343,10 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     each tick waited on) sums the device time of every kernel and counts
     the serving kernel's attention-kernel instances, which must equal the
     engine's launches — under replay the proof that the graph ran the
-    kernels (a short count raises ``RecordsLost``).  "cpu" times the host ranges of ``HOST_RANGES`` per tick.  Returns the numbers and the transcripts."""
+    kernels (a short count raises ``RecordsLost``).  "cpu" times the host ranges of ``HOST_RANGES`` per tick.  ``packs``, a list, receives every
+    step's pack as (decode tokens, prefill tokens, mean context of its
+    slots) through ``record_packs``.  Returns the numbers and the
+    transcripts."""
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.kernels import ragged_paged_flash as rpf
     from repro_torch.serve.engine import ServeEngine
@@ -1322,6 +1386,8 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
             s.run = _ranged("engine.step", s.run)
             s.fetch = _ranged("engine.logits_copy", s.fetch)
         eng._sample = _ranged("engine.sample", eng._sample)
+    if packs is not None:
+        record_packs(eng, packs)
     spans = []  # (start, end) CUDA events around each eager kernel launch
     kernel = getattr(kmod, kname)
 
@@ -1532,13 +1598,16 @@ def serve_arms(params, cfg, kv_dtype, card: str, *, ragged: bool) -> dict:
     kernel instances) and, with bf16 pools, under the CPU profiler (host
     ranges).  The captured transcripts must equal the eager ones token for
     token.  Returns {arm: unprofiled result} with "busy_ms" and "host_ms"
-    filled in from the arm's profiled repeats."""
+    filled in from the arm's profiled repeats; the captured arm's result
+    also holds its ticks' packs ("packs", ``record_packs``) for phase 9."""
     t0 = time.perf_counter()
     res = {}
     for captured in (True, False):
         arm = "captured" if captured else "eager"
         kw = dict(ragged=ragged, captured=captured)
-        res[arm] = serve_full(params, cfg, kv_dtype, card, **kw)
+        packs = [] if captured else None
+        res[arm] = serve_full(params, cfg, kv_dtype, card, packs=packs, **kw)
+        res[arm]["packs"] = packs
         gc.collect()
     assert res["captured"]["transcripts"] == res["eager"]["transcripts"], \
         "captured and eager transcripts differ"
@@ -2044,6 +2113,7 @@ def tier_phase(card: str) -> dict:
               f"{1 - pw['busy_ms'] / wall:.3f}; kernel launches "
               f"{pw['kernel_launches']} = profiled ragged_mma_kernel instances")
     copies = pw.get("copies") or {}
+    res["copies"] = copies
     if not copies:
         print("  mover copies: not measured (no gpu_memcpy of a mover's size "
               "in the trace)")
@@ -3000,7 +3070,8 @@ def train_full(card: str, steps: int = 4) -> dict:
     busy = sum(by_name.values())
     step_ms = [1e3 * r["time_s"] for r in hist]
     steady = float(np.median(step_ms[1:]))  # step 0 warms cuBLAS and the allocator
-    out = dict(launches=launches, step_ms=step_ms, busy_ms=None)
+    out = dict(launches=launches, step_ms=step_ms, busy_ms=None,
+               peak_bytes=peak * 2**30, batch=B)
     if busy == 0:
         print("  profiler: no device time recorded (not measured)")
     else:
@@ -3547,6 +3618,148 @@ def checkpoint_phase(card: str) -> dict:
                 restore_s=restore_s)
 
 
+# ---------------------------------------------------------------------------
+# 9. the cost model and the serving sweep
+
+# the knobs of a tuned serving config (the autotuner's "best" without its
+# scores): they pick the winning row out of its table
+SERVE_KNOBS = ("token_budget", "prefill_chunk", "page_size", "kv_dtype",
+               "scheduler", "n_devices", "host_pool_pages", "spec_k")
+
+
+def sweep_gates(smoke: dict, pre: dict) -> None:
+    """The serving sweep's gates on the card: every scenario's transcripts
+    identical across its arms (and to the lock-step engine where the
+    scenario asks it), pages drained on both tiers where the scenario
+    checks them, one trace per ragged engine."""
+    pref, sched = smoke["prefix_scenario"], smoke["scheduler_ab"]
+    tiered, spec = smoke["tiered_kv"], smoke["speculative"]
+    checks = {
+        "prefix": (pref["token_identical"],
+                   [pref[m]["traces"] for m in ("prefix-off", "prefix-on")]),
+        "scheduler": (sched["token_identical"],
+                      [sched[m]["traces"] for m in ("fifo", "prefix-aware",
+                                                    "slo")]),
+        "tiered": (tiered["token_identical"],
+                   [tiered[m]["traces"] for m in ("drop-on-evict",
+                                                  "host-tier")]),
+        "speculative": (spec["token_identical"] and spec["page_leak_free"],
+                        [spec[m]["traces"] for m in ("spec-off", "spec-on")]),
+        "kv-ab": (smoke["kv_dtype_ab"]["prefix_int8"]["warm_identical"], []),
+        "preemption": (pre["token_identical"] and pre["page_leak_free"],
+                       [pre[m]["traces"] for m in ("stall", "preempt")]
+                       + [pre["chaos"]["traces"]]),
+    }
+    for name, (ok, traces) in checks.items():
+        assert ok, f"serving sweep, {name}: transcripts or pages differ"
+        assert all(t == 1 for t in traces), (name, traces)
+    assert pre["chaos"]["page_leak_free"], pre["chaos"]
+
+
+def cost_phase(card: str, arms: dict, copies: dict, train: dict) -> None:
+    """Phase 9: the port's cost model (``repro_torch.core``) beside the
+    card, against phase 4's captured arms and phase 6's peak memory, and
+    the serving sweep (``benchmarks.serve_sweep``) on the card.  ``arms``
+    maps (ragged, kv_dtype) to (served config, the captured arm's
+    unprofiled result with its "packs"); ``copies`` is phase 4c's mover
+    copies ({kind: (copies, bytes, device ms)}); ``train`` phase 6's
+    result."""
+    import dataclasses
+
+    from repro_torch.benchmarks import serve_sweep
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.core import memory_model
+    from repro_torch.core.autotune import select_serve_defaults
+    from repro_torch.core.roofline import H100, mixed_bound
+
+    t0 = time.perf_counter()
+    # (a) the spec beside the card
+    mem = torch.cuda.get_device_properties(0).total_memory
+    print(f"cost model: {dataclasses.asdict(H100)}; the card: {card}, "
+          f"{mem} bytes of device memory ({mem / 2**30:.2f} GiB)")
+    if "H2D" in copies:
+        n, nbytes, ms = copies["H2D"]
+        rate = nbytes / ms * 1e3
+        print(f"  pinned H2D rate, phase 4c's mover copies (profiler device "
+              f"time, {n} copies): {rate / 1e9:.2f} GB/s = "
+              f"{rate / H100.h2d_bw:.3f} of the spec's h2d_bw")
+    else:
+        print("  pinned H2D rate: not measured (phase 4c printed no mover "
+              "copy)")
+
+    # (b) phase 4's captured arms against mixed_bound
+    for (ragged, kv), (cfg, r) in arms.items():
+        packs = r["packs"]
+        assert packs, "phase 4 recorded no pack"
+        bounds = [mixed_bound(cfg, n_decode=d, n_prefill=p, context_len=c,
+                              page_size=16, kv_dtype=kv)
+                  for d, p, c in packs]
+        bound_ms = 1e3 * sum(b["tick_s"] for b in bounds)
+        comp = 1e3 * sum(b["compute_s"] for b in bounds)
+        memo = 1e3 * sum(b["memory_s"] for b in bounds)
+        n_mem = sum(b["dominant"] == "memory" for b in bounds)
+        dom = "memory" if memo >= comp else "compute"
+        wall_share = bound_ms / r["wall_ms"]
+        busy = r["busy_ms"]
+        assert 0 < wall_share <= 1, (wall_share, bound_ms, r["wall_ms"])
+        if busy is not None:
+            assert 0 < bound_ms / busy <= 1, (bound_ms, busy)
+        path = "ragged" if ragged else "two-phase"
+        busy_txt = ("busy time not measured" if busy is None else
+                    f"busy {busy:.3f} ms: share {bound_ms / busy:.4f}")
+        print(f"bound share, {path}, {kv or 'bfloat16'} pools, captured, "
+              f"{cfg.n_layers} layers, on {card}: mixed_bound over "
+              f"{len(packs)} steps ({r['ticks']} ticks) {bound_ms:.3f} ms "
+              f"(compute {comp:.3f}, memory {memo:.3f} summed; dominant "
+              f"{dom}, memory in {n_mem} of {len(packs)} steps); wall "
+              f"{r['wall_ms']:.3f} ms: share {wall_share:.4f}; {busy_txt}")
+
+    # (c) the serving sweep on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "smoke.json")
+        t1 = time.perf_counter()
+        serve_sweep.main(["--smoke", "--json", path])
+        t_smoke = time.perf_counter() - t1
+        with open(path) as f:
+            smoke = json.load(f)
+        t1 = time.perf_counter()
+        serve_sweep.main(["--preempt-only", "--json", path])
+        t_pre = time.perf_counter() - t1
+        with open(path) as f:
+            pre = json.load(f)["preemption"]
+    sweep_gates(smoke, pre)
+    gc.collect()
+    print(f"serving sweep on {card}: --smoke {t_smoke:.1f} s, --preempt-only "
+          f"{t_pre:.1f} s; every gate holds (transcripts identical, pages "
+          f"drained on both tiers, one trace); tuned config (smoke, host "
+          f"and speculation axes): {smoke['tuned_serving_config']}")
+
+    # (d) the autotuner at full width
+    out = select_serve_defaults("qwen2-1.5b", host_pool_pages=(0, 64),
+                                spec_ks=(0, 4))
+    best = out["best"]
+    row = next(r for r in out["table"]
+               if all(r[k] == best[k] for k in SERVE_KNOBS))
+    print(f"tuned serving config, qwen2-1.5b FULL on the H100 spec: {best}")
+    print("  its criteria (value, fraction of peak): " + ", ".join(
+        f"{k} {v:.6g} ({row['fraction_of_peak'][k]:.4f})"
+        for k, v in row["criteria"].items()))
+
+    # (e) the memory model against phase 6's measured peak
+    cfg = get_config("qwen2-1.5b")
+    shape = ShapeCfg("train_4k", 4096, train["batch"], "train")
+    est = memory_model.estimate(cfg, shape, {"data": 1}, opt_int8=False)
+    peak = train["peak_bytes"]
+    print(f"memory model, qwen2-1.5b FULL training, seq 4096, batch "
+          f"{train['batch']}, one device, float32 moments: estimate "
+          f"{est['total'] / 2**30:.2f} GiB ("
+          + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in est.items()
+                      if k != "total")
+          + f"); phase 6's max_memory_allocated {peak / 2**30:.2f} GiB on "
+          f"{card}; estimate / peak {est['total'] / peak:.3f}")
+    print(f"phase 9 [{time.perf_counter() - t0:.1f} s]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3606,17 +3819,20 @@ def main() -> int:
     params = M.init_params(two_cfg,
                            generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda")
-    two = serve_arms(params, two_cfg, None, card, ragged=False)["captured"]
+    serving[(False, None)] = serve_arms(params, two_cfg, None, card,
+                                        ragged=False)
+    two = serving[(False, None)]["captured"]
     decode_launches = two["launches"]
     assert decode_launches == two_cfg.n_layers * two["decode_ticks"] > 0, \
         (decode_launches, two)
-    serve_arms(params, two_cfg, "int8", card, ragged=False)
+    serving[(False, "int8")] = serve_arms(params, two_cfg, "int8", card,
+                                          ragged=False)
     del params
     torch.cuda.empty_cache()
     phase_done("phase 4")
     spec_phase(card)
     phase_done("phase 4b")
-    tier_phase(card)
+    tier = tier_phase(card)
     phase_done("phase 4c")
     gemma_phase(card)
     phase_done("phase 4d")
@@ -3682,6 +3898,10 @@ def main() -> int:
     phase_done("phase 7")
     sweep_launches = sweep_phase(card)
     phase_done("phase 8")
+    cost_phase(card, {(ragged, kv): (cfg if ragged else two_cfg, r["captured"])
+                      for (ragged, kv), r in serving.items()},
+               tier.get("copies") or {}, tres)
+    phase_done("phase 9")
 
     t = kres["timings"]["mixed"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,11 +7,12 @@ processes, each multiplying its own N x N matrices with N = N0 / sqrt(Nproc),
 so the memory all processes hold together stays constant, and reads
 GFLOP/s against Nproc.  Here the processes are ``nproc`` independent
 products on one card and the two engines are two implementations of the
-product (``ENGINES``).  ``SweepCell``, ``factorizations``, ``PLACEMENTS`` and
-``MEMORIES`` are copied from the JAX package for the derived sweep, which
-waits: ``lower_cell``/``score``/``run_sweep`` walk XLA HLO through
-``core/hlo_cost.py`` and price it with ``core/roofline.py`` (ROADMAP.md,
-Queue 1).
+product (``ENGINES``).  ``SweepCell``, ``factorizations``, ``PLACEMENTS``,
+``MEMORIES`` and ``score`` are copied from the JAX package for the derived
+sweep; ``score`` prices a cell's per-device cost row with
+``core/roofline.py`` (``H100``).  The rest of the derived sweep waits for
+the mesh: ``lower_cell``/``run_sweep`` compile each cell on a device mesh
+and count its operations (ROADMAP.md, Queue 1, multi-GPU).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Callable, Dict, List
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.roofline import H100, HwSpec
 from repro_torch.kernels import ops
 
 PLACEMENTS = ("colsplit", "inner", "2d")
@@ -51,6 +53,22 @@ def factorizations(n_units: int) -> List:
         out.append((p, n_units // p))
         p *= 2
     return out
+
+
+def score(row: Dict, hw: HwSpec = H100) -> Dict:
+    """Paper-style efficiency: useful GF/s/chip vs practical peak."""
+    t_comp = row["flops_per_device"] / hw.peak_flops
+    t_mem = row["bytes_per_device"] / hw.hbm_bw
+    t_coll = row["collective_bytes_per_device"] / hw.ici_bw
+    t = max(t_comp, t_mem, t_coll, 1e-30)
+    useful = row["model_flops"] / row["n_devices"]
+    eff = useful / (t * hw.peak_flops)
+    return {**row, "compute_s": t_comp, "memory_s": t_mem,
+            "collective_s": t_coll,
+            "dominant": max([("compute", t_comp), ("memory", t_mem),
+                             ("collective", t_coll)], key=lambda kv: kv[1])[0],
+            "peak_fraction": min(eff, 1.0),
+            "gflops_per_chip": useful / t / 1e9}
 
 
 def sweep_n(n0: int, nproc: int) -> int:

@@ -118,6 +118,7 @@ parallelism (``mesh``).
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -327,6 +328,14 @@ class ServeEngine:
                        "kernel_launches": 0,
                        # CUDA graphs captured by this engine (port only)
                        "graph_captures": 0}
+        # per-token / per-tick logs for the latency benchmark
+        # (benchmarks/serve_sweep.py), host-only: token_log rows are (uid,
+        # tick index, wall time) per booked token; tick_log rows are (had
+        # outstanding prefill at tick start, wall time at tick end).  A
+        # booked token's wall time follows its step's logits fetch, which
+        # waits for the step on the card (serve_step.CapturedStep.fetch)
+        self.token_log: List[tuple] = []
+        self.tick_log: List[tuple] = []
         # the steps, built with the state (_ensure_state)
         self._ragged_step = self._chunk_step = self._decode_step = None
         self._rollback = None
@@ -435,6 +444,16 @@ class ServeEngine:
     def stats(self) -> Dict:
         """Engine counters merged with the pool's (read-only snapshot)."""
         return {**self._stats, **self.pool.stats}
+
+    # -- pool passthroughs (the JAX engine's surface; drivers use these) --
+    @property
+    def _ref(self) -> np.ndarray:
+        return self.pool._ref
+
+    @property
+    def cached_pages(self) -> int:
+        """Pages currently held by the prefix index."""
+        return self.pool.cached_pages
 
     @property
     def reclaimable_pages(self) -> int:
@@ -890,6 +909,8 @@ class ServeEngine:
         req = s.req
         req.out_tokens.append(tok)
         s.pos += 1
+        self.token_log.append((req.uid, self._stats["ticks"],
+                               time.perf_counter()))
         if (len(req.out_tokens) >= req.max_tokens
                 or (req.eos_id is not None and tok == req.eos_id)):
             req.done = True
@@ -1195,21 +1216,24 @@ class ServeEngine:
         self._chaos_alloc_fail = False
         if self.fault_injector is not None and self._chaos_tick():
             self._stats["ticks"] += 1  # stalled: the clock advanced
+            self.tick_log.append((False, time.perf_counter()))
             return {}
         if self.pool.events:
             # expiry or cancellation dropped parks with no admission round
             # behind them to drain the hevicts
             self._state = self._apply_pool_events(self._state)
         self._state = self._admit(self._state)
+        had_prefill = any(s is not None and s.fill < len(s.prefill_tokens)
+                          for s in self.slots)
         results: Dict[int, List[int]] = {}
         if self.ragged:
             self._state, results = self._ragged_tick(self._state)
-        elif any(s is not None and s.fill < len(s.prefill_tokens)
-                 for s in self.slots):
+        elif had_prefill:
             self._state = self._prefill_tick(self._state)
         elif any(s is not None for s in self.slots):
             self._state, results = self._decode_tick(self._state)
         self._stats["ticks"] += 1
+        self.tick_log.append((had_prefill, time.perf_counter()))
         return results
 
     def run(self, max_ticks: int = 4096) -> Dict[int, List[int]]:

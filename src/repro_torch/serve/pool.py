@@ -64,10 +64,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-# storage costs of the paged KV pools: bytes per value, and the float32
-# scale int8 pools keep per pool entry per KV head
-KV_ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
-KV_SCALE_BYTES = {"float32": 0, "bfloat16": 0, "int8": 4}
+# storage costs of the paged KV pools (bytes per value, and the float32
+# scale int8 pools keep per pool entry per KV head): core.roofline's tables,
+# the single source of truth that the cost model prices pages with too
+from repro_torch.core.roofline import KV_ITEMSIZE, KV_SCALE_BYTES
 
 
 def kv_page_bytes(cfg, page_size: int, kv_dtype: str) -> int:

@@ -1,10 +1,15 @@
 """Shared pieces of the serving parity tests of the PyTorch port
 (tests/test_torch_tiered.py, test_torch_preempt.py, test_torch_chaos.py,
-test_torch_sched.py): the JAX package imported lazily — so that ``pytest -m
-gpu`` runs where there is no JAX — the qwen2-1.5b smoke config's seed-0
-weights in float32 on both sides (bridged through numpy), and the checks
-both engines are held to."""
+test_torch_sched.py, test_torch_serve_sweep*.py): the JAX package imported
+lazily — so that ``pytest -m gpu`` runs where there is no JAX — the
+qwen2-1.5b smoke config's seed-0 weights in float32 on both sides (bridged
+through numpy), the checks both engines are held to, and the JAX package's
+serving sweep (the root ``benchmarks/serve_sweep.py``) with the filter that
+keeps a scenario's fields that are not times."""
+import importlib.util
+import re
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -89,3 +94,67 @@ def outcome(handles):
         err = None if r.error is None else type(r.error).__name__
         out.append((list(r.out_tokens), err, bool(r.cancelled)))
     return out
+
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def jax_sweep():
+    """The JAX package's serving sweep, ``benchmarks/serve_sweep.py`` at
+    the repo root (not a package: loaded from its file; skips where JAX is
+    missing)."""
+    pytest.importorskip("jax")
+    path = REPO / "benchmarks" / "serve_sweep.py"
+    spec = importlib.util.spec_from_file_location("_jax_serve_sweep", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# a sweep result's wall-clock fields: tokens/s, milliseconds, and the
+# speedups and ratios made of them
+TIME_KEY = re.compile(r"tokens_per_s|_ms|speedup|_ratio$")
+
+
+def non_time(result):
+    """``result`` (a scenario's nested dicts and lists) without its
+    wall-clock fields: what must equal the JAX sweep's on the same
+    traffic."""
+    if isinstance(result, dict):
+        return {k: non_time(v) for k, v in result.items()
+                if not TIME_KEY.search(str(k))}
+    if isinstance(result, (list, tuple)):
+        return [non_time(v) for v in result]
+    return result
+
+
+def time_keys(result, prefix=""):
+    """The wall-clock keys ``non_time`` drops, as dotted paths."""
+    out = set()
+    if isinstance(result, dict):
+        for k, v in result.items():
+            path = f"{prefix}.{k}" if prefix else str(k)
+            if TIME_KEY.search(str(k)):
+                out.add(path)
+            else:
+                out |= time_keys(v, path)
+    elif isinstance(result, (list, tuple)):
+        for i, v in enumerate(result):
+            out |= time_keys(v, f"{prefix}[{i}]")
+    return out
+
+
+def sweep_both(name: str, qwen, **kw):
+    """Scenario ``name`` of both packages' serving sweeps on the same
+    traffic: the JAX sweep's on JAX's weights, the port's on the same
+    weights bridged (``qwen``: ``load_qwen()``).  Every field that is not
+    a time must be equal, and both results must hold the same keys.
+    Returns (port result, JAX result)."""
+    from repro_torch.benchmarks import serve_sweep
+
+    cfg, tcfg, jp, tp = qwen
+    want = getattr(jax_sweep(), name)(cfg, jp, **kw)
+    got = getattr(serve_sweep, name)(tcfg, tp, **kw)
+    assert time_keys(got) == time_keys(want)
+    assert non_time(got) == non_time(want)
+    return got, want
