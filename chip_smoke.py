@@ -300,6 +300,23 @@ Phases (every check asserts; any failure exits non-zero):
    tier and speculation axes: the winner and its criteria; (e)
    ``memory_model.estimate`` for phase 6's training run beside its
    measured peak (no gate: a model).
+10. The analyzer on the card (``repro_torch.analysis``): (a)
+   ``run_all(device="cuda")`` — the lint, the page-lifecycle model, the
+   scheduler protocols and the capture contract, whose program proof
+   captures each serving step of the smoke model on the card and replays
+   it — with 0 actionable findings, every step captured and proved; (b)
+   the capture contract at qwen2-1.5b's full width (its first
+   ``ANALYZER_LAYERS`` layers, seed-0 weights, bf16 activations,
+   ``flash_decode``): the ragged engine at spec_k 2 with 64 host pages,
+   bf16 and int8 pools, and the two-phase engine, each over
+   ``ANALYZER_TICKS`` ticks of phase 4's traffic.  Every pool pointer is
+   equal before the first tick and after each; each step is captured once;
+   then ``contracts.prove_program`` over the engine's own steps and movers
+   (``contracts.engine_programs``): no host-synchronising op, a live
+   pack's writes in the pools at the same pointers (the rollback's on the
+   live rows), idle replays bit-identical, the gather bit-identical and
+   the insert in place; ragged_paged_flash and paged_flash_decode launch.
+   One line per program; the phase's seconds.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1330,6 +1347,17 @@ class RecordsLost(AssertionError):
     """A profiled run recorded fewer kernel instances than were launched."""
 
 
+def phase4_traffic(vocab: int) -> tuple:
+    """Phase 4's requests: seven prompts of 32-700 tokens, the first over a
+    300-token prefix, and a late one over the same prefix (submitted after
+    four ticks, once the prefix is prefilled and indexed)."""
+    rng = np.random.RandomState(1)
+    prefix = rng.randint(0, vocab, 300)
+    prompts = [np.concatenate([prefix, rng.randint(0, vocab, 40)])]
+    prompts += [rng.randint(0, vocab, n) for n in (32, 700, 450, 96, 260, 610)]
+    return prompts, np.concatenate([prefix, rng.randint(0, vocab, 60)])
+
+
 def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
                captured: bool = True, profile=None, packs=None) -> dict:
     """Serve the phase-4 workload once, through the ragged engine or, with
@@ -1351,7 +1379,6 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     from repro_torch.kernels import ragged_paged_flash as rpf
     from repro_torch.serve.engine import ServeEngine
 
-    rng = np.random.RandomState(1)
     kmod, kname = (rpf, "ragged_paged_flash") if ragged else (pfd, "paged_flash_decode")
     kmod.reset_launches()
     eng = ServeEngine(params, cfg, batch_size=8, cache_len=2048, page_size=16,
@@ -1399,10 +1426,7 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
         spans.append((start, end))
         return out
 
-    prefix = rng.randint(0, cfg.vocab_size, 300)
-    prompts = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size, 40)])]
-    prompts += [rng.randint(0, cfg.vocab_size, n)
-                for n in (32, 700, 450, 96, 260, 610)]
+    prompts, late = phase4_traffic(cfg.vocab_size)
     if profile == "cuda":
         prof = tick_profiler(eng)
     elif profile == "cpu":
@@ -1421,7 +1445,6 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
             handles = [eng.submit(p, max_tokens=32) for p in prompts]
             for _ in range(4):  # let the shared prefix be prefilled and indexed
                 eng.tick()
-            late = np.concatenate([prefix, rng.randint(0, cfg.vocab_size, 60)])
             handles.append(eng.submit(late, max_tokens=32))
             results = eng.run()
             torch.cuda.synchronize()
@@ -3760,6 +3783,147 @@ def cost_phase(card: str, arms: dict, copies: dict, train: dict) -> None:
     print(f"phase 9 [{time.perf_counter() - t0:.1f} s]")
 
 
+# ---------------------------------------------------------------------------
+# 10. the analyzer on the card
+
+# qwen2-1.5b at full width cut to 4 layers; each engine of (b) runs this
+# many ticks of phase 4's traffic
+ANALYZER_LAYERS = 4
+ANALYZER_TICKS = 24
+
+
+def capture_contract_run(params, cfg, card: str, *, ragged: bool, kv_dtype,
+                         spec_k: int = 0, host_pages: int = 0) -> dict:
+    """Phase 10(b) on one engine: phase 4's settings with ``flash_decode``,
+    ``ANALYZER_TICKS`` ticks of phase 4's traffic.  Every pool leaf keeps
+    its pointer across every tick; each step is captured once (the graph
+    object and ``graph_captures`` unchanged after the run and the proof);
+    the engine's replay-aware launch count is above 0.  Then the analyzer's
+    proof (``contracts.prove_program``) over the engine's own steps and
+    movers (``contracts.engine_programs``) at full width: no
+    host-synchronising op, pointers kept with a live pack's writes in the
+    pools (the rollback's on the live rows), idle replays bit-identical,
+    the gather bit-identical and the insert in place."""
+    from repro_torch.analysis import contracts as C
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(params, cfg, batch_size=8, cache_len=2048, page_size=16,
+                      prefill_chunk=128, token_budget=256, flash_decode=True,
+                      kv_dtype=kv_dtype, ragged=ragged, spec_k=spec_k,
+                      host_pages=host_pages, device=params.device)
+    eng.pool_tensors()  # builds and captures the steps
+    state = eng._state
+    steps = C.engine_steps(eng)
+    graphs = {name: s.graph for name, s in steps.items()}
+    assert all(g is not None for g in graphs.values()), "a step not captured"
+    assert eng.stats["graph_captures"] == len(steps), eng.stats
+    ptrs = C.pool_data_ptrs(state)
+    prompts, late = phase4_traffic(cfg.vocab_size)
+    for p in prompts:
+        eng.submit(p, max_tokens=32)
+    for tick in range(ANALYZER_TICKS):
+        if tick == 4:
+            eng.submit(late, max_tokens=32)
+        eng.tick()
+        C.assert_in_place(ptrs, state)
+    torch.cuda.synchronize()
+    st = eng.stats
+    assert st["ticks"] == ANALYZER_TICKS, st
+    launches = st["kernel_launches"]
+    ticks = st["ragged_ticks"] if ragged else st["decode_ticks"]
+    assert launches == cfg.n_layers * ticks > 0, st
+    path = "ragged" if ragged else "two-phase"
+    pools = kv_dtype or "bfloat16"
+    n_live = sum(s is not None for s in eng.slots)
+    for prog in C.engine_programs(eng):
+        findings, rec = C.prove_program(prog, state)
+        assert not findings, [str(f) for f in findings]
+        C.assert_in_place(ptrs, state)
+        what = (f"captured once ({len(steps)} graphs), replayed"
+                if rec["captured"] else "eager mover")
+        rows = (f", live pack on {n_live} live rows (the traffic's own "
+                f"rollbacks: {st['spec_rollbacks']})"
+                if prog.name == "rollback" else "")
+        print(f"  {path}, {pools} pools, {prog.name}: {what}, "
+              f"{len(ptrs)} pool pointers equal before the first tick and "
+              f"after each of {ANALYZER_TICKS} ticks and the proof{rows}; "
+              f"{rec}")
+    assert eng.stats["graph_captures"] == len(steps), eng.stats
+    assert all(s.graph is graphs[n] for n, s in steps.items()), \
+        "a step was captured again"
+    kname = "ragged_paged_flash" if ragged else "paged_flash_decode"
+    packed = (f"{st['packed_tokens']} tokens packed" if ragged else
+              f"{st['chunk_ticks']} prefill, {st['decode_ticks']} decode")
+    print(f"capture contract, {cfg.name} FULL width ({cfg.n_layers} layers), "
+          f"{path}, {pools} pools, spec_k {st['spec_k']}, host pages "
+          f"{st['host_pool_pages']}, on {card}: {ANALYZER_TICKS} ticks "
+          f"({packed}), graphs captured {st['graph_captures']}, {kname} "
+          f"launches {launches} ({cfg.n_layers} x {ticks} kernel ticks), spec "
+          f"drafted {st['spec_drafted']} accepted {st['spec_accepted']} "
+          f"rollbacks {st['spec_rollbacks']}, prefix hits {st['prefix_hits']}")
+    return {"launches": launches, "programs": len(steps)}
+
+
+def analyzer_phase(card: str) -> None:
+    """Phase 10: (a) ``repro_torch.analysis.run_all(device="cuda")``, every
+    pass, 0 actionable findings, every step program captured on the card
+    and proved; (b) the capture contract at qwen2-1.5b's full width (d 1536,
+    12 query heads over 2 KV heads, hd 128; seed-0 weights, its first
+    ``ANALYZER_LAYERS`` layers, bf16 activations) on the ragged engine
+    (spec_k 2, 64 host pages; bf16 and int8 pools) and the two-phase
+    engine (bf16 pools), each ``capture_contract_run``."""
+    from repro_torch.analysis import load_baseline, run_all, split_new
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import ragged_paged_flash as rpf
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    findings, stats = run_all(device="cuda")
+    actionable, tolerated = split_new(findings, load_baseline())
+    for f in actionable:
+        print(f"  ACTIONABLE {f}")
+    assert not actionable, f"{len(actionable)} actionable findings"
+    progs = stats["contracts"]["programs"]
+    for name, rec in progs.items():
+        print(f"  analyzer program {name}: {rec}")
+        assert rec["proved"], (name, rec)
+        assert rec["captured"] is not False, (name, rec)
+    n_captured = sum(rec["captured"] is True for rec in progs.values())
+    assert n_captured == len([n for n in progs if not n.startswith("page_")])
+    print(f"analyzer on {stats['contracts']['device']}, {card}: "
+          f"{len(actionable)} actionable, {len(tolerated)} tolerated "
+          f"findings; lint {stats['lint']['findings']}, lifecycle "
+          f"{stats['lifecycle']['states_explored']} states, protocols "
+          f"{len(stats['protocols']['schedulers'])} schedulers; "
+          f"{len(progs)} programs proved, {n_captured} captured and "
+          f"replayed [{time.perf_counter() - t0:.1f} s]")
+
+    cfg = cut_depth(get_config("qwen2-1.5b"), ANALYZER_LAYERS)
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    rpf.reset_launches()
+    pfd.reset_launches()
+    runs = [capture_contract_run(params, cfg, card, ragged=True, kv_dtype=kv,
+                                 spec_k=2, host_pages=64)
+            for kv in (None, "int8")]
+    runs.append(capture_contract_run(params, cfg, card, ragged=False,
+                                     kv_dtype=None))
+    assert all(r["launches"] > 0 for r in runs), runs
+    # the wrappers count the warm-up, capture and the proof's eager
+    # launches (replays run no wrapper code): both kernels built into the
+    # captured graphs
+    assert rpf.launches > 0 and pfd.launches > 0, (rpf.launches, pfd.launches)
+    print(f"capture contract: {sum(r['programs'] for r in runs)} programs "
+          f"captured once each; wrapper launches (captures and the proof's "
+          f"eager runs): "
+          f"ragged_paged_flash {rpf.launches}, paged_flash_decode "
+          f"{pfd.launches}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3902,6 +4066,8 @@ def main() -> int:
                       for (ragged, kv), r in serving.items()},
                tier.get("copies") or {}, tres)
     phase_done("phase 9")
+    analyzer_phase(card)
+    phase_done("phase 10")
 
     t = kres["timings"]["mixed"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -910,6 +910,7 @@ class ServeEngine:
         req.out_tokens.append(tok)
         s.pos += 1
         self.token_log.append((req.uid, self._stats["ticks"],
+                               # servelint: ignore[hot-nondeterminism] — measurement-only: the wall time lands in token_log for the latency benchmark and never feeds control flow
                                time.perf_counter()))
         if (len(req.out_tokens) >= req.max_tokens
                 or (req.eos_id is not None and tok == req.eos_id)):
@@ -1216,6 +1217,7 @@ class ServeEngine:
         self._chaos_alloc_fail = False
         if self.fault_injector is not None and self._chaos_tick():
             self._stats["ticks"] += 1  # stalled: the clock advanced
+            # servelint: ignore[hot-nondeterminism] — measurement-only: tick_log wall time, never control flow
             self.tick_log.append((False, time.perf_counter()))
             return {}
         if self.pool.events:
@@ -1233,6 +1235,7 @@ class ServeEngine:
         elif any(s is not None for s in self.slots):
             self._state, results = self._decode_tick(self._state)
         self._stats["ticks"] += 1
+        # servelint: ignore[hot-nondeterminism] — measurement-only: tick_log wall time, never control flow
         self.tick_log.append((had_prefill, time.perf_counter()))
         return results
 

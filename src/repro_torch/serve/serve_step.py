@@ -215,6 +215,12 @@ class CapturedStep:
         self.launches = kernel_launches() - before
         return self._out
 
+    def run_eager(self, *arrays):
+        """Run the step's function eagerly on a pack, never the graph: the
+        ops it dispatches can then be watched.  Returns its output."""
+        self._load(arrays)
+        return self._fn(*self.inputs)
+
     def fetch(self) -> np.ndarray:
         """The last output on the host: copied into a pinned buffer, waited
         on, and returned as a numpy view of that buffer (valid until the

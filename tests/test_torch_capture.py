@@ -3,9 +3,11 @@ capture itself on the card.
 
 CPU (the qwen2-1.5b smoke config):
 
-- under a ``TorchDispatchMode`` recorder, the ragged step (with (B,) and,
-  speculative, (B, R) ``logit_idx``), the speculative rollback, the prefill
-  chunk step and the decode tick dispatch no ``aten.index``/``index_put``
+- under the analyzer's ``TorchDispatchMode`` recorder
+  (``repro_torch.analysis.contracts.HostSyncRecorder``), the ragged step
+  (with (B,) and, speculative, (B, R) ``logit_idx``), the speculative
+  rollback, the prefill chunk step and the decode tick dispatch no
+  ``aten.index``/``index_put``
   with a boolean index and no ``aten.nonzero``, ``_local_scalar_dense`` or
   ``masked_select`` — the ops that copy a count to the host and cannot be
   captured — for float32 and int8 pools and both attention routes;
@@ -44,9 +46,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
+from repro_torch.analysis.contracts import HostSyncRecorder  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs.util import dense_lm  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -58,30 +60,6 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 B, CACHE, P, NPAGES, T, C = 3, 64, 8, 24, 24, 8
 PPS = CACHE // P
 
-_HOST_SYNC_OPS = ("aten::nonzero", "aten::_local_scalar_dense",
-                  "aten::masked_select")
-
-
-class _Recorder(TorchDispatchMode):
-    """Records every dispatched op that would make the host wait: the
-    ops above, and ``index``/``index_put`` with a boolean or byte index
-    (which run ``nonzero``)."""
-
-    def __init__(self):
-        super().__init__()
-        self.bad = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func._schema.name
-        if name in _HOST_SYNC_OPS:
-            self.bad.append(name)
-        elif name.startswith(("aten::index", "aten::_index_put")):
-            indices = args[1] if len(args) > 1 else ()
-            if isinstance(indices, (list, tuple)) and any(
-                    isinstance(i, torch.Tensor)
-                    and i.dtype in (torch.bool, torch.uint8) for i in indices):
-                self.bad.append(f"{name} with a boolean index")
-        return func(*args, **(kwargs or {}))
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +161,7 @@ KINDS = ["ragged", "verify", "rollback", "chunk", "decode"]
 
 def test_recorder_sees_a_boolean_index():
     x = torch.arange(6.0)
-    with _Recorder() as rec:
+    with HostSyncRecorder() as rec:
         x[x > 2] = 0.0
         _ = x[torch.tensor([True, False] * 3)]
         x[torch.tensor([1, 2])] = 1.0
@@ -202,7 +180,7 @@ def test_steps_dispatch_no_host_synchronising_op(smoke, kind, kv_dtype, flash):
     first = "verify" if kind == "rollback" else kind
     steps[first].run(*_pack_for(first, seed=1))
     step = steps[kind]
-    with _Recorder() as rec:
+    with HostSyncRecorder() as rec:
         step.run(*_pack_for(kind, seed=2))
     assert rec.bad == []
 
@@ -245,7 +223,7 @@ def test_windowed_steps_dispatch_no_host_synchronising_op(windowed, kind,
     steps = {k: v for k, v in _steps(cfg, params, state, flash).items()
              if k in ("ragged", "chunk", "decode")}
     steps["ragged"].run(*_ragged_pack(seed=1))
-    with _Recorder() as rec:
+    with HostSyncRecorder() as rec:
         if kind == "reset":
             TM.reset_paged_slots(cfg, state, tmpl,
                                  torch.tensor([False, True, False]),
@@ -295,7 +273,7 @@ def test_recurrent_steps_dispatch_no_host_synchronising_op(recurrent, kind):
     steps = {k: v for k, v in _steps(cfg, params, state, False).items()
              if k in ("ragged", "chunk", "decode")}
     steps["ragged"].run(*_ragged_pack(seed=1))
-    with _Recorder() as rec:
+    with HostSyncRecorder() as rec:
         if kind == "reset":
             TM.reset_paged_slots(cfg, state, tmpl,
                                  torch.tensor([False, True, False]),

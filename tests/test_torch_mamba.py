@@ -42,6 +42,7 @@ import numpy as np  # noqa: E402
 from _torch_serve_parity import assert_stats_equal  # noqa: E402
 from _torch_serve_parity import one_torch_thread  # noqa: E402,F401
 from repro_torch import bridge  # noqa: E402
+from repro_torch.analysis.contracts import HostSyncRecorder  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs.base import MambaCfg  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -50,7 +51,6 @@ from repro_torch.models.layers import mamba as TMa  # noqa: E402
 from repro_torch.serve import serve_step as SS  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.reference import ReferenceEngine  # noqa: E402
-from test_torch_capture import _Recorder  # noqa: E402
 from test_torch_moe import _card, _train_losses  # noqa: E402
 
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -462,7 +462,7 @@ def test_steps_dispatch_no_host_sync_and_idle_packs_keep_the_state(jamba,
             (np.zeros((B, width), np.int32),
              np.tile(np.arange(width, dtype=np.int32) + 5, (B, 1)),
              np.ones((B, width), bool)))
-    with _Recorder() as rec:
+    with HostSyncRecorder() as rec:
         steps[kind].run(*args)
     assert rec.bad == []
     before = _leaves(ts)

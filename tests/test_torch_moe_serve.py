@@ -37,12 +37,12 @@ import numpy as np  # noqa: E402
 from _torch_serve_parity import assert_stats_equal  # noqa: E402
 from _torch_serve_parity import one_torch_thread  # noqa: E402,F401
 from repro_torch import bridge  # noqa: E402
+from repro_torch.analysis.contracts import HostSyncRecorder  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.layers import moe as TMoE  # noqa: E402
 from repro_torch.serve import serve_step as SS  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.reference import ReferenceEngine  # noqa: E402
-from test_torch_capture import _Recorder  # noqa: E402
 from test_torch_moe import ARCHS, _dropped, _flat, _load  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -177,7 +177,7 @@ def test_moe_steps_dispatch_no_host_synchronising_op(llama4, kind):
         args = (np.zeros((B, width), np.int32),
                 np.tile(np.arange(width, dtype=np.int32), (B, 1)),
                 np.ones((B, width), bool))
-    with _Recorder() as rec:
+    with HostSyncRecorder() as rec:
         steps[kind].run(*args)
     assert rec.bad == []
 
