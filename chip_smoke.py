@@ -317,6 +317,30 @@ Phases (every check asserts; any failure exits non-zero):
    live rows), idle replays bit-identical, the gather bit-identical and
    the insert in place; ragged_paged_flash and paged_flash_decode launch.
    One line per program; the phase's seconds.
+11. Tensor-parallel serving (``ServeEngine(mesh=)``), within one card: (a)
+   a rank's share of kernels 1 and 2 at qwen1.5-4b's heads (kvH 20, G 1,
+   hd 128, bf16 q) on phase 3's mixed pack and phase 4's decode tick, bf16
+   and int8 pools: for N = 2 and 4 and every rank r, the ``tp_`` wrapper
+   (``serve.decode_attention``) under ``parallel.sharding.MeshView`` of
+   rank r over the rank's own contiguous pools (kvH/N heads, allocated
+   apart), given every head of q (JAX's call) and the rank's slice (the
+   layer's call), which must agree; the ranks' outputs concatenated on
+   heads must equal the whole-pool kernel bitwise (max |diff| printed);
+   device ms of rank 0's share, the kernel alone on its q slice copied
+   outside the timed graph, beside the whole (``graph_ms``: events around
+   replays of a graph of 20 calls) and the share's bound, and the
+   wrappers' launches; (b) the mesh engine on a 1-rank NCCL group
+   (``launch.mesh.make_mesh``, a ``file://`` store): qwen1.5-4b at full
+   width cut to ``TP_LAYERS`` layers, phase 4's traffic through the
+   captured ragged engine with bf16 and int8 pools, transcripts identical
+   to the engine without a mesh, ``kv_shards`` and ``n_devices`` 1; then
+   ``contracts.engine_programs`` + ``prove_program`` over the mesh engine
+   (``capture_contract_run``, ragged with spec_k 2 and 64 host pages, and
+   two-phase).  At tp 1 no collective runs (``sharding._head_tp``): the
+   all-gather inside a captured graph is checked on four cards by
+   ``tests/test_torch_tp_serve.py::test_engine_across_cards`` and
+   ``serve_sweep --sharded-only``, not here (this script needs one card).
+   The phase's seconds (at most 40).
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1359,7 +1383,8 @@ def phase4_traffic(vocab: int) -> tuple:
 
 
 def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
-               captured: bool = True, profile=None, packs=None) -> dict:
+               captured: bool = True, profile=None, packs=None,
+               mesh=None) -> dict:
     """Serve the phase-4 workload once, through the ragged engine or, with
     ``ragged=False``, the two-phase engine (prefill chunks, then decode
     ticks through the paged flash-decode kernel); with ``captured`` each
@@ -1373,8 +1398,9 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     engine's launches — under replay the proof that the graph ran the
     kernels (a short count raises ``RecordsLost``).  "cpu" times the host ranges of ``HOST_RANGES`` per tick.  ``packs``, a list, receives every
     step's pack as (decode tokens, prefill tokens, mean context of its
-    slots) through ``record_packs``.  Returns the numbers and the
-    transcripts."""
+    slots) through ``record_packs``.  ``mesh`` serves under a
+    ``DeviceMesh`` (phase 11).  Returns the numbers, the transcripts and
+    the tensor-parallel stats."""
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.kernels import ragged_paged_flash as rpf
     from repro_torch.serve.engine import ServeEngine
@@ -1384,7 +1410,7 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     eng = ServeEngine(params, cfg, batch_size=8, cache_len=2048, page_size=16,
                       prefill_chunk=128, token_budget=256, flash_decode=True,
                       kv_dtype=kv_dtype, ragged=ragged, device=params.device,
-                      cuda_graph=captured)
+                      cuda_graph=captured, mesh=mesh)
     ptrs = [t.data_ptr() for t in eng.pool_tensors()]  # builds the steps
     steps = ([eng._ragged_step] if ragged
              else [eng._chunk_step, eng._decode_step])
@@ -1486,7 +1512,10 @@ def serve_full(params, cfg, kv_dtype, card: str, *, ragged: bool = True,
     out = dict(wall_ms=1e3 * wall, ticks=ticks, tokens=toks, busy_ms=None,
                launches=launches, kernel_ticks=kernel_ticks,
                decode_ticks=st["decode_ticks"],
-               transcripts=[list(results[h]) for h in handles])
+               transcripts=[list(results[h]) for h in handles],
+               tp={k: st[k] for k in ("kv_shards", "n_devices",
+                                      "kv_pool_bytes",
+                                      "kv_pool_bytes_per_device")})
     if spans:
         kernel_ms = sum(a.elapsed_time(b) for a, b in spans)
         out["kernel_ms"] = kernel_ms
@@ -3793,7 +3822,8 @@ ANALYZER_TICKS = 24
 
 
 def capture_contract_run(params, cfg, card: str, *, ragged: bool, kv_dtype,
-                         spec_k: int = 0, host_pages: int = 0) -> dict:
+                         spec_k: int = 0, host_pages: int = 0,
+                         mesh=None) -> dict:
     """Phase 10(b) on one engine: phase 4's settings with ``flash_decode``,
     ``ANALYZER_TICKS`` ticks of phase 4's traffic.  Every pool leaf keeps
     its pointer across every tick; each step is captured once (the graph
@@ -3803,14 +3833,15 @@ def capture_contract_run(params, cfg, card: str, *, ragged: bool, kv_dtype,
     movers (``contracts.engine_programs``) at full width: no
     host-synchronising op, pointers kept with a live pack's writes in the
     pools (the rollback's on the live rows), idle replays bit-identical,
-    the gather bit-identical and the insert in place."""
+    the gather bit-identical and the insert in place.  ``mesh``: the
+    engine under a ``DeviceMesh`` (phase 11(b))."""
     from repro_torch.analysis import contracts as C
     from repro_torch.serve.engine import ServeEngine
 
     eng = ServeEngine(params, cfg, batch_size=8, cache_len=2048, page_size=16,
                       prefill_chunk=128, token_budget=256, flash_decode=True,
                       kv_dtype=kv_dtype, ragged=ragged, spec_k=spec_k,
-                      host_pages=host_pages, device=params.device)
+                      host_pages=host_pages, device=params.device, mesh=mesh)
     eng.pool_tensors()  # builds and captures the steps
     state = eng._state
     steps = C.engine_steps(eng)
@@ -3854,8 +3885,10 @@ def capture_contract_run(params, cfg, card: str, *, ragged: bool, kv_dtype,
     kname = "ragged_paged_flash" if ragged else "paged_flash_decode"
     packed = (f"{st['packed_tokens']} tokens packed" if ragged else
               f"{st['chunk_ticks']} prefill, {st['decode_ticks']} decode")
+    meshed = "" if mesh is None else (
+        f", mesh {tuple(mesh.shape)} kv_shards {st['kv_shards']}")
     print(f"capture contract, {cfg.name} FULL width ({cfg.n_layers} layers), "
-          f"{path}, {pools} pools, spec_k {st['spec_k']}, host pages "
+          f"{path}{meshed}, {pools} pools, spec_k {st['spec_k']}, host pages "
           f"{st['host_pool_pages']}, on {card}: {ANALYZER_TICKS} ticks "
           f"({packed}), graphs captured {st['graph_captures']}, {kname} "
           f"launches {launches} ({cfg.n_layers} x {ticks} kernel ticks), spec "
@@ -3919,6 +3952,163 @@ def analyzer_phase(card: str) -> None:
           f"eager runs): "
           f"ragged_paged_flash {rpf.launches}, paged_flash_decode "
           f"{pfd.launches}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 11. tensor-parallel serving within one card
+
+
+TP_LAYERS = 4  # qwen1.5-4b's first 4 of 40 layers for phase 11(b)
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn``, read from CUDA events around replays
+    of one CUDA graph that holds ``iters`` calls (two eager warm-up calls
+    first, on a side stream): no host path and no profiler, whose device
+    records late in a long run now and then go missing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def tp_shares(card: str) -> dict:
+    """Phase 11(a): kernels 1 and 2 on each rank's share of the pools at
+    qwen1.5-4b's heads, against the whole-pool kernel, bitwise."""
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import ragged_paged_flash as rpf
+    from repro_torch.parallel.sharding import MeshView, make_serve_rules, use_mesh
+    from repro_torch.serve import decode_attention as DA
+
+    dev = torch.device("cuda")
+    heads = SHAPES["qwen1.5-4b"]
+    kvH = heads["kvH"]
+    packs = {"mixed": make_pack("mixed", **heads),
+             "decode": make_decode_pack(**heads)}
+    wrappers = {"mixed": (DA.tp_ragged_paged_flash, rpf.ragged_paged_flash,
+                          bound),
+                "decode": (DA.tp_paged_flash_decode, pfd.paged_flash_decode,
+                           decode_bound)}
+    rpf.reset_launches()
+    pfd.reset_launches()
+    out = {}
+    for kind, pack in packs.items():
+        tp_call, whole_call, bound_fn = wrappers[kind]
+        for kv_dt in (torch.bfloat16, torch.int8):
+            args = kernel_inputs(pack, torch.bfloat16, kv_dt, dev)
+            q, kp, vp, *index, ks, vs = args
+            whole = whole_call(q, kp, vp, *index, ks=ks, vs=vs)
+            whole_ms = graph_ms(lambda: whole_call(q, kp, vp, *index, ks=ks,
+                                                   vs=vs))
+            for n in (2, 4):
+                parts, share = [], None
+                for r in range(n):
+                    hs = slice(r * kvH // n, (r + 1) * kvH // n)
+                    # the rank's own pools, allocated apart from the whole
+                    own = [t[:, :, hs].contiguous() for t in (kp, vp)]
+                    sc = ([t[:, :, hs].contiguous() for t in (ks, vs)]
+                          if ks is not None else [None, None])
+                    q_r = q[:, hs].contiguous()  # the layer's own slice
+                    view = MeshView((n,), ("model",), (r,))
+                    with use_mesh(view, make_serve_rules(view)):
+                        # JAX's call (every head of q) and the layer's
+                        part = tp_call(q, *own, *index, ks=sc[0], vs=sc[1])
+                        assert torch.equal(
+                            tp_call(q_r, *own, *index, ks=sc[0], vs=sc[1]),
+                            part), (kind, kv_dt, n, r)
+                    parts.append(part)
+                    if r == 0:
+                        share = (q_r, own, sc)
+                got = torch.cat(parts, dim=1)
+                diff = float((got.float() - whole.float()).abs().max())
+                assert torch.equal(got, whole), (kind, kv_dt, n, diff)
+                # the share's time: the kernel alone on the rank's q, sliced
+                # and copied outside the timed graph, as the layer gives it
+                q_r, own, sc = share
+                share_ms = graph_ms(lambda: whole_call(
+                    q_r, *own, *index, ks=sc[0], vs=sc[1]))
+                b_ms, b_by = bound_fn((q_r, *own, *index, *sc))
+                ratio = f"{share_ms / whole_ms:.3f}"
+                print(f"tp share, {'ragged_paged_flash' if kind == 'mixed' else 'paged_flash_decode'} "
+                      f"qwen1.5-4b heads (kvH {kvH}, G {heads['G']}, hd "
+                      f"{heads['hd']}) {kind} pack, bf16 q, pools {kv_dt}, "
+                      f"{n} ranks, on {card}: ranks' outputs concatenated on "
+                      f"heads == whole-pool kernel bitwise (max |diff| "
+                      f"{diff:.1e}); rank 0 ({kvH // n} heads) device "
+                      f"{share_ms:.5f} ms vs whole {whole_ms:.5f} ms "
+                      f"(graph replays of the kernel alone; share/whole "
+                      f"{ratio}); share's bound "
+                      f"{b_ms:.5f} ms ({b_by})")
+                out[(kind, str(kv_dt), n)] = dict(share_ms=share_ms,
+                                                  whole_ms=whole_ms,
+                                                  bound_ms=b_ms, diff=diff)
+            del args, whole
+        torch.cuda.empty_cache()
+    print(f"tp share launches (wrapper counts; a timing graph's 20 calls "
+          f"count once each, at its capture): "
+          f"ragged_paged_flash {rpf.launches}, paged_flash_decode "
+          f"{pfd.launches}")
+    assert rpf.launches > 0 and pfd.launches > 0
+    return out
+
+
+def tp_engine(card: str) -> None:
+    """Phase 11(b): the mesh engine on a 1-rank NCCL group against the
+    engine without a mesh, then the capture contract over it."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+
+    cfg = cut_depth(get_config("qwen1.5-4b"), TP_LAYERS)
+    params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = make_mesh((1,), ("model",), device="cuda",
+                         init_method=f"file://{tmp}/store")
+        try:
+            assert dist.get_backend() == "nccl", dist.get_backend()
+            for kv in (None, "int8"):
+                plain = serve_full(params, cfg, kv, card)
+                meshed = serve_full(params, cfg, kv, card, mesh=mesh)
+                assert meshed["transcripts"] == plain["transcripts"], kv
+                assert meshed["tp"]["kv_shards"] == 1, meshed["tp"]
+                assert meshed["tp"]["n_devices"] == 1, meshed["tp"]
+                assert meshed["tp"]["kv_pool_bytes_per_device"] == \
+                    meshed["tp"]["kv_pool_bytes"], meshed["tp"]
+                print(f"tp engine, {cfg.name} FULL width ({cfg.n_layers} "
+                      f"layers), 1-rank NCCL mesh, pools {kv or 'bfloat16'}, "
+                      f"captured, on {card}: {len(plain['transcripts'])} "
+                      f"transcripts identical to the engine without a mesh; "
+                      f"{meshed['tp']}; launches {meshed['launches']} (mesh) "
+                      f"{plain['launches']} (none); ms/tick "
+                      f"{meshed['wall_ms'] / meshed['ticks']:.2f} (mesh) "
+                      f"{plain['wall_ms'] / plain['ticks']:.2f} (none)")
+            capture_contract_run(params, cfg, card, ragged=True, kv_dtype=None,
+                                 spec_k=2, host_pages=64, mesh=mesh)
+            capture_contract_run(params, cfg, card, ragged=False,
+                                 kv_dtype=None, mesh=mesh)
+        finally:
+            dist.destroy_process_group()
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4068,6 +4258,11 @@ def main() -> int:
     phase_done("phase 9")
     analyzer_phase(card)
     phase_done("phase 10")
+    t11 = time.perf_counter()
+    tp_shares(card)
+    tp_engine(card)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s (limit 40)")
+    phase_done("phase 11")
 
     t = kres["timings"]["mixed"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -496,7 +496,8 @@ _BUILDER_MODULE = "repro_torch.serve.serve_step"
 
 # engine attribute -> (the method that builds it, the serve_step builder,
 # {keyword: the expression the engine must pass})
-_FLAGS = {"flash_decode": "self.flash_decode", "capture": "self.cuda_graph"}
+_FLAGS = {"flash_decode": "self.flash_decode", "capture": "self.cuda_graph",
+          "ctx": "self._ctx"}
 ENGINE_BUILDERS: Dict[str, Tuple[str, str, Dict[str, str]]] = {
     "_ragged_step": ("_build_steps", "capture_ragged_step", _FLAGS),
     "_rollback": ("_build_steps", "capture_spec_rollback",

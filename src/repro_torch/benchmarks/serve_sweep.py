@@ -7,9 +7,12 @@ and JSON keys.  Its engines take the JAX sweep's settings (``flash_decode``
 stays at its default, as there), and the sweep's weights are seed-0
 random parameters from ``models.model.init_params`` on ``--device``
 (``cuda`` by default; ``--device cpu`` rehearses on the CPU).  The
-tensor-parallel scenario (``--sharded``, ``--sharded-only``) waits for
-``ServeEngine(mesh=)`` and raises ``NotImplementedError`` (ROADMAP.md,
-Queue 1, multi-GPU).
+tensor-parallel scenario (``--sharded``, ``--sharded-only``) runs each
+device count as that many rank processes (``launch.ranks``), one card
+each on ``cuda`` (gloo processes on ``cpu``); it reports what JAX's
+reports but the roofline projection (``projected_tokens_per_s``,
+``projected_speedup``), which JAX reads from its HLO cost walk
+(``core/hlo_cost.py``, not ported: ROADMAP.md, Queue 1 item 3).
 
 The paper sweeps (Nproc × Nthread) at constant memory and shows that one
 set of system settings keeps every factorization near peak.  The serving
@@ -928,6 +931,105 @@ def kv_ab_scenario(cfg, params, *, cache_len: int = 64, batch_size: int = 8,
     }
 
 
+def _sharded_rank(n_dev: int, arch: str, batch: int, cache_len: int,
+                  max_tokens: int, device: str) -> dict:
+    """One rank of one device count of the sharded scenario: decode-heavy
+    traffic (short prompts, long generations — the KV-dominated regime
+    KV-head tensor parallelism targets) through an engine on an
+    ``n_dev``-rank ("model",) mesh (no mesh at 1, as in JAX's sweep), a warm
+    run, then a measured one."""
+    cfg, params = seed_params(arch, device)
+    kw = dict(batch_size=batch, cache_len=cache_len, page_size=16,
+              prefill_chunk=16, token_budget=max(32, batch))
+    if n_dev > 1:
+        from repro_torch.launch.mesh import make_mesh
+
+        kw["mesh"] = make_mesh((n_dev,), ("model",), device=params.device.type)
+    eng = ServeEngine(params, cfg, device=params.device, **kw)
+    rng = np.random.RandomState(23)
+    prompts = [rng.randint(0, cfg.vocab_size, int(L))
+               for L in rng.randint(6, 14, size=batch + 2)]
+    for p in prompts:  # warm: build (and capture) outside the measurement
+        eng.submit(p, max_tokens=max_tokens)
+    eng.run()
+    uids = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
+    t0 = time.perf_counter()
+    results = eng.run()
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(results[u]) for u in uids)
+    return {"n_devices": eng.stats["n_devices"],
+            "measured_tokens_per_s": n_tok / dt,
+            "kv_shards": eng.stats["kv_shards"],
+            "kv_pool_bytes": eng.stats["kv_pool_bytes"],
+            "kv_pool_bytes_per_device": eng.stats["kv_pool_bytes_per_device"],
+            "transcript": sorted((int(k), [int(t) for t in v])
+                                 for k, v in results.items())}
+
+
+def sharded_serve_scenario(arch: str = "qwen1.5-4b", device_counts=(1, 2, 4),
+                           batch: int = 4, cache_len: int = 256,
+                           max_tokens: int = 24, timeout: int = 1200,
+                           device=None):
+    """KV-head tensor-parallel serving across device counts.
+
+    Each device count N runs as N rank processes (``launch.ranks.run_ranks``:
+    NCCL with one card per rank on ``cuda``, gloo on ``cpu``); every rank
+    serves the same traffic, and rank 0's report stands for the count.
+    ``token_identical`` checks the engine's contract: identical transcripts
+    at every device count, on every rank.  ``measured_speedup`` is wall
+    tokens/s at the largest count over the first.  JAX's
+    ``projected_tokens_per_s``/``projected_speedup`` come from its HLO cost
+    walk (``core/hlo_cost.py``), which is not ported, so they are absent.
+    qwen1.5-4b smoke is the default arch (its kvH = 4 shards 4 ways).
+    Raises on ``cuda`` with fewer cards than the largest count."""
+    from repro_torch.launch.ranks import run_ranks
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < max(device_counts):
+        raise RuntimeError(
+            f"the sharded scenario needs one CUDA device per rank: "
+            f"{max(device_counts)} ranks, {torch.cuda.device_count()} devices")
+    per, identical = {}, True
+    for n in device_counts:
+        ranks = run_ranks("repro_torch.benchmarks.serve_sweep:_sharded_rank", n,
+                          (n, arch, batch, cache_len, max_tokens, dev.type),
+                          device=dev.type, timeout=timeout)
+        per[n] = ranks[0]
+        identical &= all(r["transcript"] == ranks[0]["transcript"]
+                         for r in ranks)
+    base = per[device_counts[0]]
+    identical &= all(r["transcript"] == base["transcript"]
+                     for r in per.values())
+    top = per[max(device_counts)]
+    return {
+        "arch": arch,
+        "device_counts": list(device_counts),
+        "per_device_count": {str(n): {k: v for k, v in r.items()
+                                      if k != "transcript"}
+                             for n, r in per.items()},
+        "measured_speedup": (top["measured_tokens_per_s"]
+                             / base["measured_tokens_per_s"]),
+        "token_identical": bool(identical),
+    }
+
+
+def _sharded_rows(sharded):
+    rows = []
+    for n, r in sharded["per_device_count"].items():
+        rows.append((
+            f"serve/{sharded['arch']}/sharded/n_devices={n}",
+            r["measured_tokens_per_s"],
+            f"kv_shards={r['kv_shards']},"
+            f"kv_pool_bytes_per_device={r['kv_pool_bytes_per_device']},"
+            f"projected=not-ported"))
+    rows.append((
+        f"serve/{sharded['arch']}/sharded/measured_speedup"
+        f"/{max(sharded['device_counts'])}x-devices",
+        sharded["measured_speedup"],
+        f"x-measured-wall,token_identical={sharded['token_identical']}"))
+    return rows
+
+
 def seed_params(arch: str, device=None):
     """(smoke config, its seed-0 random weights on the resolved device):
     the sweep's model, as the JAX sweep builds it from ``PRNGKey(0)``."""
@@ -1053,11 +1155,11 @@ def main(argv=None):
                     help="tiny grid (one user count, one page size)")
     ap.add_argument("--sharded", action="store_true",
                     help="also run the KV-head tensor-parallel scenario "
-                         "(not ported yet: raises NotImplementedError)")
+                         "(1/2/4 rank processes on qwen1.5-4b smoke; one "
+                         "card per rank on cuda)")
     ap.add_argument("--sharded-only", action="store_true",
                     help="skip the single-device sweep; run only the "
-                         "sharded scenario (implies --sharded; not ported "
-                         "yet)")
+                         "sharded scenario (implies --sharded)")
     ap.add_argument("--tiered-only", action="store_true",
                     help="skip the main sweep; run only the tiered KV "
                          "cache A/B (drop-on-evict vs host-tier replay)")
@@ -1075,13 +1177,10 @@ def main(argv=None):
                     help="torch device to serve on (default: cuda; cpu "
                          "rehearses the sweep on the CPU)")
     args = ap.parse_args(argv)
-    if args.sharded or args.sharded_only:
-        raise NotImplementedError(
-            "the tensor-parallel serving scenario (--sharded, --sharded-only) "
-            "needs ServeEngine(mesh=), which is not ported yet: it comes with "
-            "the multi-GPU slice of the PyTorch port (ROADMAP.md, Queue 1)")
     if args.smoke:
         args.users, args.page_sizes, args.max_tokens = [4], [8], 4
+    if args.sharded_only:
+        args.sharded = True
     rows, lat, pre, kv_ab, sched_ab, tiered, spec = (
         [], None, None, None, None, None, None)
     preemption = None
@@ -1097,11 +1196,15 @@ def main(argv=None):
         cfg, params = seed_params(args.arch, args.device)
         preemption = preemption_scenario(cfg, params, warm=not args.cold)
         rows = _preempt_rows(args.arch, preemption)
-    else:
+    elif not args.sharded_only:
         rows, lat, pre, kv_ab, sched_ab, tiered, spec = sweep(
             args.arch, args.users, args.page_sizes, args.max_tokens,
             args.cache_len, baseline=not args.no_baseline, warm=not args.cold,
             device=args.device)
+    sharded = None
+    if args.sharded:
+        sharded = sharded_serve_scenario(device=args.device)
+        rows += _sharded_rows(sharded)
     print("name,tokens_per_s,derived")
     for name, tps, derived in rows:
         print(f"{name},{tps:.1f},{derived}", flush=True)
@@ -1129,6 +1232,12 @@ def main(argv=None):
                 args.arch, smoke=True, host_pool_pages=(0, 64),
                 spec_ks=(0, 4))["best"],
         }
+        if sharded is not None:
+            payload["sharded_serve"] = sharded
+            # the TP axis of the tuner, next to the measured scenario
+            payload["tuned_serving_config_tp"] = select_serve_defaults(
+                sharded["arch"], smoke=True,
+                device_counts=tuple(sharded["device_counts"]))["best"]
         with open(args.json, "w") as f:
             json.dump(payload, f, indent=2)
             f.write("\n")

@@ -3,8 +3,8 @@
 for training and prefill (causal or bidirectional, self- or
 cross-attention), and the lock-step decode cache.
 
-Counterpart of ``repro.models.layers.attention`` (all but the multi-device
-decode).  Layouts follow the JAX package: q is
+Counterpart of ``repro.models.layers.attention``.  Layouts follow the JAX
+package: q is
 grouped (.., kvH, G, hd) with G = num_heads // num_kv_heads, weights are
 stored grouped — wq (D,kvH,G,hd), wo (kvH,G,hd,D) — and the pool is
 kp/vp (n_pages, page, kvH, hd) with a block table ptab (B, pps), per-slot
@@ -29,6 +29,17 @@ Differences from JAX, on purpose:
   where JAX gathers a (T, cap) copy of each token's slot buffer: the same
   function, without the per-token copy.
 
+Under the serving engine's mesh (``parallel.sharding.make_serve_rules``,
+ambient through ``use_mesh``) a layer whose KV-head count the head axis
+divides holds ``kvH/N`` heads of every pool page (or windowed buffer) on
+each rank: ``init_paged_cache`` allocates that many, the step writes and
+attends over the rank's heads only (``parallel.sharding.head_slice``;
+the kernels through the ``tp_`` wrappers of ``serve.decode_attention``), and ``_out_proj_replicated``
+all-gathers the heads before the projection.  Under a sequence rule the
+lock-step cache holds ``cap/N`` entries per rank and ``attention_decode
+(sp_decode=True)`` combines the ranks' partial terms
+(``serve.decode_attention.sp_flash_decode``).
+
 Windowed layers (``cfg.window``) keep per-slot circular buffers of
 ``min(window, cache_len) + window_extra`` entries in the serving state, and
 a shared circular buffer of ``min(window, max_len)`` entries in the
@@ -46,6 +57,8 @@ import torch
 from repro_torch.configs.base import AttnCfg
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers.embeddings import apply_rope
+from repro_torch.parallel.sharding import gather_heads, head_slice
+from repro_torch.serve import decode_attention as DA
 
 NEG_INF = -1e30
 
@@ -77,10 +90,25 @@ def _out_proj(params, cfg: AttnCfg, o):
     return o.reshape(*o.shape[:-3], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-# One device holds the whole pool, so the JAX package's replicate-before-
-# contract variant (which keeps sums device-count-independent under a KV-head
-# mesh) is the plain projection here.
-_out_proj_replicated = _out_proj
+def _out_proj_replicated(params, cfg: AttnCfg, o):
+    """The serving steps' out-projection: a rank's (.., kvH/N, G, hd) output
+    is all-gathered over the head group first (an exact collective), so
+    the head-contracting product runs on every head in one order and
+    outputs are bit-identical at any rank count.  Where the layer ran on
+    every head (no mesh, or heads that do not split) the plain
+    projection."""
+    return _out_proj(params, cfg, gather_heads(o, cfg.num_kv_heads))
+
+
+def _local_heads(cfg: AttnCfg, q, k, v):
+    """The heads of q (.., kvH, G, hd) and k, v (.., kvH, hd) that this
+    rank holds under the ambient mesh; the tensors themselves where the
+    layer is not split."""
+    hs = head_slice(cfg.num_kv_heads)
+    if hs is None:
+        return q, k, v
+    return (q[..., hs, :, :].contiguous(), k[..., hs, :].contiguous(),
+            v[..., hs, :].contiguous())
 
 
 def kv_cache_dtype(kv_dtype, act_dtype) -> torch.dtype:
@@ -105,10 +133,14 @@ def init_paged_cache(cfg: AttnCfg, batch: int, cache_len: int, dtype, *,
     stay in the activation dtype whatever ``kv_dtype`` is, as in JAX: int8
     quantizes the global layers only.  Cross-attention layers have no
     serving cache: ``NotImplementedError``, as JAX's
-    ``init_block_state_paged`` raises."""
+    ``init_block_state_paged`` raises.  Under the engine's mesh the pools
+    and buffers hold this rank's ``kvH/N`` heads (``parallel.sharding
+    .head_slice``)."""
     if cfg.cross:
         raise NotImplementedError("paged serving covers token models only")
-    kvH, hd = cfg.num_kv_heads, cfg.head_dim
+    hs = head_slice(cfg.num_kv_heads)
+    kvH = cfg.num_kv_heads if hs is None else hs.stop - hs.start
+    hd = cfg.head_dim
     L = (layers,)
     if cfg.window is not None:
         cap = min(cfg.window, cache_len) + window_extra
@@ -301,6 +333,7 @@ def paged_attention_step(params, cfg: AttnCfg, x, cache, q_pos, valid, *,
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k_new = apply_rope(k_new, q_pos, cfg.rope_theta)
 
+    q, k_new, v_new = _local_heads(cfg, q, k_new, v_new)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
     if "kp" not in cache:  # windowed: per-slot circular buffers
         keep, idx = _write_window(cache, rows, q_pos, valid, k_new, v_new)
@@ -324,13 +357,13 @@ def paged_attention_step(params, cfg: AttnCfg, x, cache, q_pos, valid, *,
     _update_slen(cache["slen"], rows, q_pos, valid)
 
     if flash_decode and C == 1:
-        o = kops.paged_flash_decode(q[:, 0].contiguous(), cache["kp"],
-                                    cache["vp"], cache["ptab"], cache["slen"],
-                                    ks=cache.get("ks"), vs=cache.get("vs"))
+        o = DA.tp_paged_flash_decode(q[:, 0].contiguous(), cache["kp"],
+                                     cache["vp"], cache["ptab"], cache["slen"],
+                                     ks=cache.get("ks"), vs=cache.get("vs"))
         return _out_proj_replicated(params, cfg, o[:, None]), cache
 
     k, v = _gather_paged_kv(cache, q.dtype)
-    kvH, hd = cfg.num_kv_heads, cfg.head_dim
+    kvH, hd = cache["kp"].shape[-2:]  # this rank's heads
     o = _paged_masked_attn(q, k.reshape(B, T, kvH, hd), v.reshape(B, T, kvH, hd),
                            cache["kpos"], q_pos, cfg.window)
     return _out_proj_replicated(params, cfg, o), cache
@@ -380,6 +413,7 @@ def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,
         q = apply_rope(q[None], q_pos[None], cfg.rope_theta)[0]
         k_new = apply_rope(k_new[None], q_pos[None], cfg.rope_theta)[0]
 
+    q, k_new, v_new = _local_heads(cfg, q, k_new, v_new)
     sl, qp = slot.long(), q_pos.long()
     B = cache["slen"].shape[0]
     if "kp" not in cache:  # windowed: per-slot circular buffers
@@ -404,13 +438,13 @@ def ragged_attention_step(params, cfg: AttnCfg, x, cache, slot, q_pos, valid,
 
     if flash_decode:
         lens = torch.where(valid, q_pos + 1, 0).to(torch.int32)
-        o = kops.ragged_paged_flash(q, cache["kp"], cache["vp"], cache["ptab"],
-                                    slot.to(torch.int32), lens,
-                                    ks=cache.get("ks"), vs=cache.get("vs"))
+        o = DA.tp_ragged_paged_flash(q, cache["kp"], cache["vp"],
+                                     cache["ptab"], slot.to(torch.int32), lens,
+                                     ks=cache.get("ks"), vs=cache.get("vs"))
         return _out_proj_replicated(params, cfg, o[None]), cache
 
     k_all, v_all = _gather_paged_kv(cache, q.dtype)
-    kvH, hd = cfg.num_kv_heads, cfg.head_dim
+    kvH, hd = cache["kp"].shape[-2:]  # this rank's heads
     k_tok = k_all.reshape(B, Tc, kvH, hd)[sl]  # (T,Tc,kvH,hd)
     v_tok = v_all.reshape(B, Tc, kvH, hd)[sl]
     o = _paged_masked_attn(q[:, None], k_tok, v_tok, cache["kpos"][sl],
@@ -483,12 +517,15 @@ def attention_decode(params, cfg: AttnCfg, x, cache, *, sp_decode: bool = False)
     attends over the buffer with the causal and window mask.  A
     cross-attention layer attends over its cache's projected encoder K/V
     with a zero bias over all T entries and leaves the cache as it is.
-    Returns (out (B, 1, D), cache).  ``sp_decode`` (sequence-sharded
-    decode over a mesh) raises ``NotImplementedError``."""
-    if sp_decode and not cfg.cross:
-        raise NotImplementedError(
-            "sequence-parallel decode (sp_decode) is not ported yet: it comes "
-            "with multi-GPU serving (ROADMAP.md, Queue 1)")
+    Returns (out (B, 1, D), cache).
+
+    ``sp_decode`` attends through ``decode_attention.sp_flash_decode``
+    (JAX's sequence-parallel decode).  Under an ambient sequence rule
+    ("act_kv_seq") this rank's cache holds ``cap/N`` consecutive entries
+    of the ``cap``-entry buffer (``serve_step.local_state``): only the rank
+    that owns entry ``pos % cap`` writes it, every rank advances ``pos``,
+    and the ranks' partial terms combine across the sequence group.
+    Without one it is the local computation over the whole cache."""
     q = _project_q(params, cfg, x)  # (B,1,kvH,G,hd)
     if cfg.cross:
         bias = torch.zeros((1, cache["k"].shape[1]), device=x.device)
@@ -499,6 +536,8 @@ def attention_decode(params, cfg: AttnCfg, x, cache, *, sp_decode: bool = False)
     if cfg.rope_theta is not None:
         q = apply_rope(q, pos, cfg.rope_theta)
         k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    if sp_decode:
+        return _sp_decode(params, cfg, q, k_new, v_new, pos, cache)
     cap = cache["k"].shape[1]
     slot = torch.remainder(pos, cap).long()
     cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
@@ -507,4 +546,25 @@ def attention_decode(params, cfg: AttnCfg, x, cache, *, sp_decode: bool = False)
     cache["pos"].add_(1)
     bias = _mask_bias(pos, cache["k_pos"], True, cfg.window)
     o = _softmax_attn(q, cache["k"], cache["v"], bias)
+    return _out_proj(params, cfg, o), cache
+
+
+def _sp_decode(params, cfg: AttnCfg, q, k_new, v_new, pos, cache):
+    """``attention_decode``'s sequence-parallel branch: entry ``pos % cap``
+    of the whole buffer lands on the rank that owns it (the others write
+    their own entry back), then ``sp_flash_decode`` over the rank's
+    entries."""
+    n, r = DA.seq_shard()
+    local = cache["k"].shape[1]
+    idx = torch.remainder(pos, local * n).long() - r * local
+    mine = (idx >= 0) & (idx < local)
+    idx = idx.clamp(0, local - 1)
+    for name, new in (("k", k_new), ("v", v_new), ("k_pos", pos)):
+        buf = cache[name]
+        dim = 0 if name == "k_pos" else 1
+        old = buf.index_select(dim, idx)
+        buf.index_copy_(dim, idx, torch.where(mine, new.to(buf.dtype), old))
+    cache["pos"].add_(1)
+    o = DA.sp_flash_decode(q, cache["k"], cache["v"], cache["k_pos"], pos[0],
+                           window=cfg.window)
     return _out_proj(params, cfg, o), cache

@@ -111,13 +111,28 @@ identical to the JAX engine's on the same weights:
   _ragged_recurrent_roll``, JAX's design, inside the captured graph).  The
   gates are the windowed model's: no prefix cache, speculation or
   preemption, and no page is reserved.
-
-Left for a later slice, raising ``NotImplementedError``: tensor
-parallelism (``mesh``).
+- **Tensor parallelism** (``mesh=``, a ``DeviceMesh`` from
+  ``launch.mesh.make_mesh((N,), ("model",))``; one engine per rank).  JAX's
+  design: only the paged KV pools split, along the KV-head axis
+  (``parallel.sharding.make_serve_rules``): each rank allocates ``kvH/N``
+  heads of every page (and of a windowed layer's buffers), writes and
+  attends over them (kernels 1 and 2 on its own heads through
+  ``serve.decode_attention``'s ``tp_`` wrappers), and the attention output
+  is all-gathered over the head group before the out-projection — the one
+  collective of the step, inside its captured graph.  Weights, block
+  tables, positions, recurrent states and the whole host side (PagePool,
+  scheduler, slot bookkeeping) are replicated: every rank runs the same
+  loop on the same traffic, computes the same logits and samples the same
+  tokens, so transcripts are token-identical at any rank count.  Layers
+  whose head count the axis does not divide keep whole pools.  Every
+  feature above works under a mesh; ``stats`` reports ``kv_shards``,
+  ``n_devices`` and ``kv_pool_bytes_per_device`` as JAX computes them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Dict, List, Optional
@@ -129,6 +144,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import model as M
 from repro_torch.models.transformer import POOL_LEAVES
+from repro_torch.parallel.sharding import axis_sizes, make_serve_rules, use_mesh
 from repro_torch.serve.errors import (Cancelled, DeadlineExceeded,
                                       EngineOverloaded, RequestTooLarge)
 from repro_torch.serve.handle import Request, RequestHandle
@@ -185,11 +201,6 @@ class ServeEngine:
                  spec_k: int = 0, preempt: bool = True,
                  max_queue: Optional[int] = None, fault_injector=None,
                  device=None, cuda_graph: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet: it comes "
-                "with the multi-GPU slice of the PyTorch port (ROADMAP.md, "
-                "Queue 1)")
         self.scheduler = make_scheduler(scheduler)
         # speculation rides the policy layer, as in JAX: spec_k wraps the
         # policy in a SpeculativeScheduler, or one comes as scheduler=
@@ -233,6 +244,22 @@ class ServeEngine:
         if self._draft is None:
             self._spec_k = 0
         self.device = resolve_device(device)
+        # KV-head tensor parallelism (see the module docstring): the pools'
+        # head axis splits kv_shards ways over the mesh's TP axis; layers
+        # whose head count it does not divide keep whole pools
+        self.mesh = mesh
+        self._kv_shards = 1
+        self._rules = None
+        if mesh is not None:
+            mesh_dev = getattr(mesh, "device_type", self.device.type)
+            if mesh_dev != self.device.type:
+                raise ValueError(f"a {mesh_dev} mesh cannot serve on "
+                                 f"{self.device}")
+            self._rules = make_serve_rules(mesh)
+            ax = self._rules["act_kv_heads"]
+            sizes = axis_sizes(mesh)
+            for a in ((ax,) if isinstance(ax, str) else tuple(ax)):
+                self._kv_shards *= sizes[a]
         self.params = params.to(self.device)
         self.cfg = cfg
         self.B = batch_size
@@ -320,8 +347,13 @@ class ServeEngine:
                        "kv_bytes_per_token": kv_bytes_per_token(
                            cfg, self.kv_dtype),
                        "kv_pool_bytes": self.n_pages * page_bytes,
-                       "kv_shards": 1, "n_devices": 1,
-                       "kv_pool_bytes_per_device": self.n_pages * page_bytes,
+                       # tensor-parallel accounting: shards of the pools'
+                       # KV-head axis and one rank's share of the pool bytes
+                       "kv_shards": self._kv_shards,
+                       "n_devices": (math.prod(axis_sizes(mesh).values())
+                                     if mesh is not None else 1),
+                       "kv_pool_bytes_per_device": self.n_pages * kv_page_bytes(
+                           cfg, page_size, self.kv_dtype, self._kv_shards),
                        # launches of the CUDA attention kernels by this
                        # engine's steps (0 on the CPU, which runs the plain
                        # versions)
@@ -1157,6 +1189,15 @@ class ServeEngine:
         """No live slot and nothing queued."""
         return all(s is None for s in self.slots) and not self.queue
 
+    def _ctx(self):
+        """The engine's mesh and serve rules, ambient for the code inside
+        (no-op without ``mesh=``): the state is allocated and every step
+        built, captured and run under it, so each layer finds its heads and
+        the head group."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_mesh(self.mesh, self._rules)
+
     def _ensure_state(self):
         """Decode state is created once and persists for the engine's whole
         life (the pool's pages ARE the prefix cache).  Windowed layers'
@@ -1172,12 +1213,15 @@ class ServeEngine:
         failed pinned allocation raises; nothing falls back to pageable
         memory).  The steps of the
         engine's path are built (and, on a CUDA device, captured) here,
-        once, over that state."""
+        once, over that state.  Under ``mesh=`` the pools and windowed
+        buffers are allocated at this rank's heads (so is the host store,
+        whose rows are gathered from them)."""
         if self._state is None:
-            self._state = M.init_paged_state(
-                self.params, self.cfg, self.B, self.cache_len,
-                page_size=self.page_size, n_pages=self.n_pages,
-                window_extra=self.chunk, kv_dtype=self.kv_dtype)
+            with self._ctx():
+                self._state = M.init_paged_state(
+                    self.params, self.cfg, self.B, self.cache_len,
+                    page_size=self.page_size, n_pages=self.n_pages,
+                    window_extra=self.chunk, kv_dtype=self.kv_dtype)
             self._template = M.reset_template(self._state)
             if self.host_pages:
                 pin = self.device.type == "cuda"
@@ -1193,7 +1237,7 @@ class ServeEngine:
         if self.ragged:
             self._ragged_step = capture_ragged_step(
                 *args, T=self.budget, B=self.B, width=self.width,
-                R=1 + self._spec_k, **kw)
+                R=1 + self._spec_k, ctx=self._ctx, **kw)
             steps = [self._ragged_step]
             if self._spec_k:
                 self._rollback = capture_spec_rollback(
@@ -1202,9 +1246,11 @@ class ServeEngine:
                 steps.append(self._rollback)
         else:
             self._chunk_step = capture_paged_step(
-                *args, B=self.B, C=self.chunk, with_logits=False, **kw)
+                *args, B=self.B, C=self.chunk, with_logits=False,
+                ctx=self._ctx, **kw)
             self._decode_step = capture_paged_step(
-                *args, B=self.B, C=1, with_logits=True, **kw)
+                *args, B=self.B, C=1, with_logits=True, ctx=self._ctx,
+                **kw)
             steps = [self._chunk_step, self._decode_step]
         self._stats["graph_captures"] += sum(s.captured for s in steps)
 

@@ -70,12 +70,16 @@ import numpy as np
 from repro_torch.core.roofline import KV_ITEMSIZE, KV_SCALE_BYTES
 
 
-def kv_page_bytes(cfg, page_size: int, kv_dtype: str) -> int:
+def kv_page_bytes(cfg, page_size: int, kv_dtype: str,
+                  kv_shards: int = 1) -> int:
     """Bytes one pool page costs across ALL paged (global-attention) layers
     for a given storage dtype — K and V values plus, for int8, their scale
     rows.  The engine sizes its page budget with this: a pool budget is a
     BYTE budget, and int8 fits ~``4·hd/(hd+4)``× the pages of float32 in
-    the same bytes."""
+    the same bytes.  ``kv_shards`` prices a page PER RANK under KV-head
+    tensor parallelism (the engine's ``mesh=``): each rank holds ``kvH //
+    kv_shards`` of a layer's heads (layers whose head count does not divide
+    stay whole and cost their full bytes on every rank)."""
     isize = KV_ITEMSIZE[kv_dtype]
     sbytes = KV_SCALE_BYTES[kv_dtype]
     total = 0
@@ -83,6 +87,8 @@ def kv_page_bytes(cfg, page_size: int, kv_dtype: str) -> int:
         for blk in st.pattern:
             if blk.mixer == "attn" and blk.attn.window is None:
                 kvH, hd = blk.attn.num_kv_heads, blk.attn.head_dim
+                if kvH % kv_shards == 0:
+                    kvH //= kv_shards
                 total += st.repeats * 2 * page_size * kvH * (hd * isize
                                                              + sbytes)
     return total

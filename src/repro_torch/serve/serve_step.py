@@ -14,6 +14,11 @@ rejected draft rows; ``make_page_gather`` / ``make_page_insert`` build the
 host tier's page movers (JAX's of the same names), which run eagerly, on
 the current stream, between the captured steps.
 
+``STATE_AXES``, ``decode_state_specs`` and ``local_state`` lay a decode
+state out over a mesh (JAX's ``STATE_AXES``/``decode_state_specs``): each
+leaf's spec from its name's logical axes under the ambient rules, and a
+rank's slice of it.
+
 ``CapturedStep`` is the port of JAX's one jitted program per step: it owns
 static input tensors of the step's fixed shapes and, on a CUDA device,
 captures the step once into a CUDA graph (``torch.cuda.graph``) and
@@ -25,16 +30,21 @@ whole step.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.kernels import paged_flash_decode as pfd
 from repro_torch.kernels import ragged_paged_flash as rpf
 from repro_torch.models import model as M
+from repro_torch.parallel.sharding import (current_mesh, current_rules,
+                                           local_slices, logical_spec,
+                                           sanitize_spec)
 
 # eager calls on a side stream before the capture: the kernels' libraries
 # build and load, cuBLAS sets up, the decode kernel's split counters exist
@@ -108,6 +118,89 @@ def make_page_insert(cfg: ModelCfg):
         return M.insert_kv_page(cfg, state, page_data, page)
 
     return page_insert
+
+
+# leaf name -> logical axes of a decode-state leaf (unstacked; a stacked
+# stage adds a leading "layer" dim), JAX's table
+STATE_AXES: Dict[str, tuple] = {
+    # attention KV cache (lock-step engine)
+    "k": ("act_kv_batch", "act_kv_seq", "act_kv_heads", None),
+    "v": ("act_kv_batch", "act_kv_seq", "act_kv_heads", None),
+    "k_pos": ("act_kv_seq",),
+    "pos": (),
+    # paged KV: page pools (and int8 scale pools) shard over KV heads;
+    # block tables and positions are per slot and follow the batch axis
+    "kp": (None, None, "act_kv_heads", None),
+    "vp": (None, None, "act_kv_heads", None),
+    "ks": (None, None, "act_kv_heads"),
+    "vs": (None, None, "act_kv_heads"),
+    "ptab": ("act_kv_batch", None),
+    "kpos": ("act_kv_batch", None),
+    "slen": ("act_kv_batch",),
+    # mamba
+    "h": ("act_kv_batch", "tensor", None),
+    "conv": ("act_kv_batch", None, "tensor"),
+    # mlstm
+    "C": ("act_kv_batch", None, None, None),
+    "n": ("act_kv_batch", None, None),
+    "m": ("act_kv_batch", None),
+    # slstm
+    "sh": ("act_kv_batch", None),
+    "sc": ("act_kv_batch", None),
+    "sn": ("act_kv_batch", None),
+    "sm": ("act_kv_batch", None),
+}
+
+
+def _state_leaf_spec(name: str, shape, rules, mesh=None) -> tuple:
+    """The spec of the decode-state leaf ``name`` of ``shape`` (JAX's
+    ``_state_leaf_spec``): its logical axes, a leading "layer" dim when the
+    leaf is stacked, mapped by ``rules`` and, with a mesh, sanitized."""
+    if name not in STATE_AXES:
+        raise ValueError(f"no sharding rule for decode-state leaf {name!r}")
+    axes = STATE_AXES[name]
+    if len(shape) == len(axes) + 1:
+        axes = ("layer",) + axes
+    elif len(shape) != len(axes):
+        raise ValueError(f"state leaf {name}: ndim {len(shape)} vs rule "
+                         f"{len(axes)}")
+    spec = logical_spec(axes, rules)
+    if mesh is not None:
+        spec = sanitize_spec(spec, tuple(shape), mesh)
+    return spec
+
+
+def _map_leaves(tree, fn, name=None):
+    """``fn(name, leaf)`` over a state's leaves, ``name`` the nearest dict
+    key; the tree's dicts and lists kept."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(v, fn, name) for v in tree]
+    return fn(name, tree)
+
+
+def decode_state_specs(state, rules=None):
+    """The spec tree of a decode state (``init_paged_state`` or
+    ``init_decode_state``; tensors, meta tensors or anything with a
+    ``shape``) under ``rules`` (the ambient rules by default), sanitized
+    against the ambient mesh."""
+    rules = rules if rules is not None else current_rules()
+    mesh = current_mesh()
+    return _map_leaves(state, lambda name, leaf: _state_leaf_spec(
+        name, tuple(leaf.shape), rules, mesh))
+
+
+def local_state(state, mesh, rules):
+    """This rank's part of a whole decode state laid out over ``mesh`` by
+    ``rules``: every leaf sliced by its sanitized spec and copied
+    (contiguous).  For tests and conversions: a serving engine allocates
+    its rank's pools at their local size instead."""
+    def local(name, leaf):
+        spec = _state_leaf_spec(name, tuple(leaf.shape), rules, mesh)
+        return leaf[local_slices(spec, tuple(leaf.shape), mesh)].clone()
+
+    return _map_leaves(state, local)
 
 
 def kernel_launches() -> int:
@@ -193,8 +286,14 @@ class CapturedStep:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        # a process group runs a watchdog thread that queries its
+        # collectives' events: under the default "global" mode that query
+        # would invalidate a capture, so a rank restricts the check to the
+        # capturing thread
+        mode = ("thread_local" if dist.is_available() and dist.is_initialized()
+                else "global")
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode=mode):
                 self._out = self._fn(*self.inputs)
         finally:
             if collecting:
@@ -256,16 +355,20 @@ def idle_paged_pack(B: int, C: int) -> List[np.ndarray]:
 
 def capture_ragged_step(cfg: ModelCfg, params, state, *, T: int, B: int,
                         width: int, R: int = 1, flash_decode: bool = False,
-                        capture: bool = True) -> CapturedStep:
+                        capture: bool = True,
+                        ctx: Callable = contextlib.nullcontext) -> CapturedStep:
     """The ragged step at pack size T over B slots, with R verify rows a
     slot (R = 1 + spec_k; 1 without speculation), as a ``CapturedStep``:
     ``run(tokens, slot, q_pos, seq_idx, valid, logit_idx)`` returns the
     float32 logits, (B, V) at R = 1 and (B, R, V) otherwise; the cast runs
-    inside the step."""
+    inside the step.  Every call (and the capture) runs inside ``ctx()``:
+    the engine's mesh and serve rules (``parallel.sharding.use_mesh``),
+    where the step's layers find their heads and the head group."""
     step = make_ragged_step(cfg, width=width, flash_decode=flash_decode)
 
     def fn(*inputs):
-        return step(params, state, *inputs)[0].float()
+        with ctx():
+            return step(params, state, *inputs)[0].float()
 
     i32 = torch.int32
     specs = [((T,), i32)] * 4 + [((T,), torch.bool), (_logit_shape(B, R), i32)]
@@ -292,15 +395,18 @@ def capture_spec_rollback(cfg: ModelCfg, state, *, B: int, device,
 
 def capture_paged_step(cfg: ModelCfg, params, state, *, B: int, C: int,
                        with_logits: bool, flash_decode: bool = False,
-                       capture: bool = True) -> CapturedStep:
+                       capture: bool = True,
+                       ctx: Callable = contextlib.nullcontext) -> CapturedStep:
     """A two-phase step at (B, C) as a ``CapturedStep``: ``run(tokens,
     q_pos, valid)`` returns None for the prefill chunk (``with_logits``
-    False) and the float32 logits (B, V) of the decode tick (C == 1)."""
+    False) and the float32 logits (B, V) of the decode tick (C == 1).
+    Every call runs inside ``ctx()``, as the ragged step's."""
     step = make_paged_step(cfg, with_logits=with_logits,
                            flash_decode=flash_decode)
 
     def fn(*inputs):
-        logits, _ = step(params, state, *inputs)
+        with ctx():
+            logits, _ = step(params, state, *inputs)
         return None if logits is None else logits[:, -1].float()
 
     specs = [((B, C), torch.int32)] * 2 + [((B, C), torch.bool)]

@@ -5,7 +5,10 @@ kernel build helpers.
   kernel ``repro.kernels.ops.flash_attention`` run in interpret mode, on the
   cases of tests/test_kernels.py (S / hd / G / kvH / window sweeps in
   float32 and bfloat16, block invariance, causality).  Tolerance: float32
-  rtol = atol = 1e-5 (the two sum in another order); bfloat16 atol = 2e-2,
+  rtol = atol = 1e-5 (the two sum in another order; a failure also prints
+  each side's distance from a float64 yardstick, the thread count, the
+  affinity and the CPU, since one such failure under load never came
+  back); bfloat16 atol = 2e-2,
   compared in float32 (p is rounded to bf16 against another running max),
   and each output row within 1e-2 of its norm.
 - ``flash_attention_grouped`` forward and its gradients (q, k, v) against
@@ -21,8 +24,11 @@ kernel build helpers.
   card.
 
 JAX is imported by the ``jx`` fixture, not at module level, so that the
-``gpu`` tests also run where only PyTorch is installed.
+``gpu`` tests also run where only PyTorch is installed.  The module runs
+torch on one intra-op thread (``one_torch_thread``), as the serving parity
+files do.
 """
+import os
 import types
 
 import pytest
@@ -31,6 +37,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from _torch_serve_parity import one_torch_thread  # noqa: E402,F401 (autouse)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -38,6 +45,58 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=0.0, atol=2e-2)
 BF16_ROW_RTOL = 1e-2
+
+
+def _f64_attention(q, k, v, window):
+    """Causal attention in float64 (numpy), shapes as ``flash_attention``:
+    the yardstick a failing float32 comparison measures each side by."""
+    BH, S, hd = q.shape
+    BKV = k.shape[0]
+    qf = q.astype(np.float64).reshape(BKV, BH // BKV, S, hd) * hd ** -0.5
+    s = np.einsum("kgqd,ktd->kgqt", qf, k.astype(np.float64))
+    rows, cols = np.arange(S)[:, None], np.arange(S)[None, :]
+    ok = rows >= cols
+    if window is not None:
+        ok &= (rows - cols) < window
+    p = np.exp(np.where(ok, s, -np.inf) - np.where(ok, s, -np.inf).max(
+        -1, keepdims=True))
+    o = np.einsum("kgqt,ktd->kgqd", p, v.astype(np.float64))
+    return (o / p.sum(-1, keepdims=True)).reshape(BH, S, hd)
+
+
+def _cpu_info() -> str:
+    """The CPU model and its widest vector ISA, from the Linux CPU table
+    (empty elsewhere)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            text = f.read()
+    except OSError:
+        return "cpu unknown"
+    model = next((ln.split(":", 1)[1].strip() for ln in text.splitlines()
+                  if ln.startswith("model name")), "unknown")
+    flags = next((ln.split(":", 1)[1].split() for ln in text.splitlines()
+                  if ln.startswith("flags")), [])
+    isa = next((f for f in ("avx512f", "avx2", "avx") if f in flags), "none")
+    return f"cpu {model!r}, {isa}"
+
+
+def assert_f32_close(got, want, arrays, window):
+    """``F32_TOL``.  A failure also reports each side's max |diff| from a
+    float64 yardstick on the same inputs (which side moved), torch's
+    intra-op threads, the process's CPU affinity, the CPU, and the test
+    worker: a failure that does not come back still says where it was."""
+    got, want = np.asarray(got), np.asarray(want)
+    try:
+        np.testing.assert_allclose(got, want, **F32_TOL)
+    except AssertionError as err:
+        ref = _f64_attention(*arrays, window)
+        diag = (f"max |port - float64| {np.abs(got - ref).max():.3e}, "
+                f"max |jax - float64| {np.abs(want - ref).max():.3e}; torch "
+                f"threads {torch.get_num_threads()}, affinity "
+                f"{len(os.sched_getaffinity(0))} of {os.cpu_count()} CPUs, "
+                f"{_cpu_info()}, worker "
+                f"{os.environ.get('PYTEST_XDIST_WORKER', 'main')}")
+        raise AssertionError(f"{err}\n{diag}") from None
 
 
 def assert_bf16_close(got, want):
@@ -87,7 +146,7 @@ def test_plain_matches_pallas_kernel(jx, S, hd, G, kvH, window, dtype):
                                bk=32, window=window)
     assert got.dtype == getattr(torch, dtype)
     if dtype == "float32":
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+        assert_f32_close(got.numpy(), want, arrays, window)
     else:
         assert_bf16_close(got.float().numpy(), want)
 
@@ -97,7 +156,7 @@ def test_block_invariance(jx):
     for bq, bk in ((16, 64), (128, 16)):
         want = jx.ops.flash_attention(*_jax(jx, arrays), bq=bq, bk=bk)
         got = tops.flash_attention(*_torch(arrays), bq=bq, bk=bk)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+        assert_f32_close(got.numpy(), want, arrays, None)
 
 
 @pytest.mark.parametrize("sq,hd,g", [(32, 8, 1), (64, 16, 3), (64, 8, 2)])

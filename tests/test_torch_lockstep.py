@@ -200,16 +200,6 @@ def test_write_slot_follows_jax_rules(model, batch):
     _compare_states(m, want, ts)
 
 
-def test_sp_decode_raises(model):
-    m = model
-    blk = m.tcfg.stages[0].pattern[0]
-    cache = TA.init_cache(blk.attn, 1, 8, torch.float32)
-    view = {k: v[0] for k, v in cache.items()}
-    x = torch.zeros(1, 1, m.tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TA.attention_decode({}, blk.attn, x, view, sp_decode=True)
-
-
 def test_reference_engine_needs_a_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

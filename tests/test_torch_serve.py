@@ -5,9 +5,9 @@ float32 activations, for float32 and int8 pools and for both attention
 routes (``flash_decode`` False and True on both engines), across a cold
 wave and a warm wave that hits the prefix cache mid-page (copy-on-write).
 Beside parity: pools never move (the in-place contract), no page leaks
-after completion and cancellation, the engine refuses to run without a card
-unless asked for the CPU, and tensor parallelism (``mesh``), the feature of
-a later slice, raises ``NotImplementedError``."""
+after completion and cancellation, and the engine refuses to run without a
+card unless asked for the CPU.  Tensor parallelism (``mesh=``) is held
+against JAX in tests/test_torch_tp_serve.py and test_torch_tp_features.py."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -146,11 +146,3 @@ def test_engine_needs_a_card_unless_asked_for_cpu(qwen):
     _, tcfg, _, tp = qwen
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(tp, tcfg, **KW)
-
-
-@pytest.mark.parametrize("kw", [dict(mesh=object())],
-                         ids=lambda kw: next(iter(kw)))
-def test_features_of_later_slices_raise(qwen, kw):
-    _, tcfg, _, tp = qwen
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServeEngine(tp, tcfg, device="cpu", **{**KW, **kw})

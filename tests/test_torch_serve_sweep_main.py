@@ -3,8 +3,8 @@ repro_torch.benchmarks.serve_sweep``) on the CPU: ``--smoke --device cpu
 --json`` writes a payload with the JAX sweep's keys — each scenario's
 result with JAX's fields, rows as JAX's row builders make them, and the
 tuned config the port's ``select_serve_defaults`` picks, equal to the JAX
-tuner's on the same card; the tensor-parallel flags raise until the mesh
-lands (ROADMAP.md, Queue 1)."""
+tuner's on the same card.  The tensor-parallel flags (``--sharded``,
+``--sharded-only``) are held in tests/test_torch_tp_sweep.py."""
 import dataclasses
 import json
 
@@ -75,13 +75,6 @@ def test_tuned_config_matches_jax_tuner(payloads):
         "qwen2-1.5b", smoke=True, host_pool_pages=(0, 64), spec_ks=(0, 4),
         hw=hw)["best"]
     assert port["tuned_serving_config"] == want
-
-
-@pytest.mark.parametrize("flag", ["--sharded", "--sharded-only"])
-def test_sharded_flags_raise_until_the_mesh_lands(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.main(["--smoke", flag, "--device", "cpu"])
-    assert not hasattr(TS, "sharded_serve_scenario")
 
 
 def test_sweep_serves_on_the_card_unless_told(monkeypatch):
