@@ -164,9 +164,11 @@ Phases (every check asserts; any failure exits non-zero):
    decode tick), and the two-phase engine at the first 12 layers (10
    windowed, 2 global), bf16 and int8 pools: kernel 2 launched twice a
    decode tick.
-4e. Recurrent serving at full width: xlstm-350m FULL (24 layers: 21
-   mLSTM at 4 heads of head_dim 512, 3 sLSTM with a gated-gelu FFN; d 1024,
-   0.499 B parameters; seed-0 weights, bf16 activations) through the ragged
+4e. Recurrent serving at full width: xlstm-350m's first period of its
+   7:1 pattern (``XLSTM_REPEATS``: 8 of its 24 layers, 7 mLSTM at 4 heads
+   of head_dim 512 and 1 sLSTM with a gated-gelu FFN; d 1024; the depth
+   cut to keep the script's time when phase 12 came in; seed-0 weights,
+   bf16 activations) through the ragged
    engine, captured and eager, at phase 4's batch and budget (prefill_chunk
    ``XLSTM_CHUNK``, so each tick rolls the single-step decode chunk + 1
    times a layer, JAX's design; 32, for the note at ``XLSTM_CHUNK``) on 8
@@ -238,7 +240,9 @@ Phases (every check asserts; any failure exits non-zero):
    step (the global layers' forward and recomputation; the windowed layers
    take the chunked route, as in JAX), all "simt".  Per step: time and
    tokens/s; peak memory.
-6c. xlstm-350m FULL training: three ``TrainLoop`` steps at sequence 1024,
+6c. xlstm-350m training at full width, one period of its pattern (8 of
+   24 layers, ``XLSTM_TRAIN_REPEATS``; cut with 4e's for phase 12): three
+   ``TrainLoop`` steps at sequence 1024,
    batch 1, bf16 activations over float32 parameters, remat "full" (no
    attention, so no ``use_flash``).  Every loss is finite and every
    parameter gets a finite gradient; per step: time; peak memory.
@@ -341,6 +345,28 @@ Phases (every check asserts; any failure exits non-zero):
    ``tests/test_torch_tp_serve.py::test_engine_across_cards`` and
    ``serve_sweep --sharded-only``, not here (this script needs one card).
    The phase's seconds (at most 40).
+12. Sharded training (``make_train_step`` under ``use_mesh``), within one
+   card: (a) kernel 3 on a data rank's share at the training shape, q (24,
+   4096, 128) over k/v (4, 4096, 128), causal, bf16 (``wgmma``; batch 2 x
+   12 heads): each rank r of a 2-way ``MeshView`` takes its rows as the
+   train step does (``train_step.batch_specs``) and its call equals those rows of
+   the whole-batch call bitwise; device ms of the share (``graph_ms`` of
+   the kernel alone) beside the whole call and the share's bound; (b) the
+   sharded train step on a 1-rank NCCL mesh (``make_mesh((1, 1), ("data",
+   "model"), init_method=file://...)``) at phase 6's settings cut to
+   ``TRAIN_MESH_LAYERS`` layers (qwen2-1.5b at full width, bf16
+   activations over float32 params, ``use_flash``, remat "full", sequence
+   4096, batch 2) with float32 and int8 moments, 3 steps beside the same 3
+   without a mesh: losses and the state after step 3 bitwise equal (at one
+   rank every gather and reduction is the identity), flash launches equal
+   in both arms and to ``flash_launches_per_step`` x 3, ms a step and peak
+   memory of each arm; (c) the int8 arm's state saved from the mesh
+   (gathered, the first rank writes) and restored without one, bitwise;
+   (d) a rank's train-state bytes at rest from ``param_specs`` over
+   ``MeshView`` (shapes on the meta device, no processes) for qwen2-1.5b
+   and llama4-maverick FULL at meshes (1, 1), (4, 1), (2, 2), (4, 2) and
+   (16, 16), float32 and int8 moments, beside the whole state.  The
+   phase's seconds (at most 40).
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2509,6 +2535,10 @@ def lockstep_vs_ragged(card: str) -> None:
 # and 4.25 s eager, 169,575 kernels a replay; PERF.md), over a quarter of
 # the script's time limit, so it runs at 32 (width 33), an engine setting
 # JAX has too.
+# The depth: the first period of the 7:1 pattern (8 of 24 layers, every
+# block kind).  At all 24 layers the phase took 106-136 s on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md), cut to make room for phase 12.
+XLSTM_REPEATS = 1
 XLSTM_LENS = (64, 512, 200, 384, 96, 448, 256, 320)
 XLSTM_OUT = 32
 XLSTM_CHUNK = 32
@@ -2587,7 +2617,7 @@ def serve_xlstm(params, cfg, card: str, *, captured: bool = True,
     assert ticks == len(walls)
     peak = torch.cuda.max_memory_allocated() / 2**30
     arm = "captured" if captured else "eager"
-    print(f"serve xlstm-350m FULL ({cfg.n_layers} layers), ragged, "
+    print(f"serve xlstm-350m at full width ({cfg.n_layers} layers), ragged, "
           f"prefill_chunk {eng.chunk} (roll width {eng.width}), {arm}, on "
           f"{card}: {len(handles)} requests, {toks} tokens in {wall:.3f} s = "
           f"{toks / wall:.2f} tokens/s, {ticks} ticks, "
@@ -2603,8 +2633,9 @@ def serve_xlstm(params, cfg, card: str, *, captured: bool = True,
 
 
 def xlstm_phase(card: str) -> dict:
-    """Phase 4e: xlstm-350m FULL (24 layers: 21 mLSTM, 3 sLSTM; seed-0
-    weights, bf16 activations) through the ragged engine captured and
+    """Phase 4e: xlstm-350m at full width, ``XLSTM_REPEATS`` periods of
+    its 7:1 pattern (8 layers at 1: 7 mLSTM, 1 sLSTM; seed-0 weights, bf16
+    activations) through the ragged engine captured and
     eager: equal transcripts; then a captured repeat with four ticks
     profiled (the first two, prefill, and two decode ticks near the end):
     device busy time, idle share against the unprofiled captured run's
@@ -2613,10 +2644,11 @@ def xlstm_phase(card: str) -> dict:
     from repro_torch.models import model as M
 
     t0 = time.perf_counter()
-    cfg = get_config("xlstm-350m")
+    cfg = cut_depth(get_config("xlstm-350m"), XLSTM_REPEATS)
     params = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda")
-    print(f"xlstm-350m FULL: {param_count(cfg) / 1e9:.3f} B parameters, "
+    print(f"xlstm-350m at full width, {cfg.n_layers} layers: "
+          f"{param_count(cfg) / 1e9:.3f} B parameters, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     cap = serve_xlstm(params, cfg, card)
     gc.collect()
@@ -3280,12 +3312,16 @@ def train_gemma(card: str) -> dict:
     return out
 
 
-# xlstm-350m's training shape: sequence 1024, batch 1
+# xlstm-350m's training shape: sequence 1024, batch 1; its depth, one
+# period of the 7:1 pattern (8 of 24 layers, every block kind), cut with
+# phase 4e's to make room for phase 12
 XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 1024, 3
+XLSTM_TRAIN_REPEATS = 1
 
 
 def train_xlstm(card: str) -> dict:
-    """Phase 6c: xlstm-350m FULL (24 layers, d 1024; seed-0 weights) for
+    """Phase 6c: xlstm-350m at full width, ``XLSTM_TRAIN_REPEATS`` periods
+    of its 7:1 pattern (8 layers at 1; d 1024; seed-0 weights) for
     three ``TrainLoop`` steps at sequence 1024, batch 1, bf16 activations
     over float32 parameters and moments, remat "full", no ``use_flash``
     (no attention).  Every loss is finite, and one more ``loss_fn`` gives
@@ -3294,7 +3330,7 @@ def train_xlstm(card: str) -> dict:
     from repro_torch.models import model as M
     from repro_torch.train.loop import TrainLoop
 
-    cfg = get_config("xlstm-350m")
+    cfg = cut_depth(get_config("xlstm-350m"), XLSTM_TRAIN_REPEATS)
     steps = XLSTM_TRAIN_STEPS
     shape = ShapeCfg("xlstm_train", XLSTM_TRAIN_SEQ, 1, "train")
     loop = TrainLoop(cfg, shape, lr=3e-4, total_steps=steps, device="cuda",
@@ -3303,7 +3339,7 @@ def train_xlstm(card: str) -> dict:
     hist = loop.run(steps)
     assert all(np.isfinite(r["loss"]) for r in hist), hist
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train xlstm-350m FULL ({cfg.n_layers} layers, "
+    print(f"train xlstm-350m at full width ({cfg.n_layers} layers, "
           f"{param_count(cfg) / 1e9:.3f} B params), seq {XLSTM_TRAIN_SEQ}, "
           f"batch 1, bf16 activations, f32 params, remat {cfg.remat}, on "
           f"{card}: peak memory {peak:.2f} GiB")
@@ -4114,6 +4150,233 @@ def tp_engine(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 12. sharded training within one card
+
+
+TRAIN_MESH_LAYERS = 4  # qwen2-1.5b's first 4 of 28 layers for phase 12(b)
+TRAIN_MESH_STEPS = 3
+STATE_MESHES = ((1, 1), (4, 1), (2, 2), (4, 2), (16, 16))
+
+
+def train_share(card: str) -> dict:
+    """Phase 12(a): kernel 3 on each data rank's rows of the training
+    shape against the whole-batch call, bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import (MeshView, local_slices, make_rules,
+                                               shard_tensor, use_mesh)
+    from repro_torch.train.train_step import batch_specs
+
+    B, S, kvH, G, hd = 2, 4096, 2, 6, 128  # q (24, 4096, 128), k/v (4, ...)
+    g = torch.Generator("cuda").manual_seed(12)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+               for shape in ((B, S, kvH, G, hd), (B, S, kvH, hd), (B, S, kvH, hd)))
+
+    def flat(q, k, v):  # the kernel's layout (ops._flash_grouped_local)
+        return (q.movedim(1, 3).contiguous().view(-1, S, hd),
+                k.movedim(1, 2).contiguous().view(-1, S, hd),
+                v.movedim(1, 2).contiguous().view(-1, S, hd))
+
+    fa.reset_launches()
+    whole = ops.flash_attention_grouped(q, k, v)
+    n = 2
+    for r in range(n):
+        view = MeshView((n, 1), ("data", "model"), (r, 0))
+        with use_mesh(view, make_rules(view)):  # the train step's cut
+            specs = batch_specs({"q": q, "k": k, "v": v})
+            share = ops.flash_attention_grouped(
+                *(shard_tensor(t, specs[name]) for name, t in (("q", q),
+                                                                ("k", k),
+                                                                ("v", v))))
+            rows = local_slices(specs["q"], q.shape, view)[0]
+        assert rows == slice(r, r + 1), rows
+        diff = float((share.float() - whole[rows].float()).abs().max())
+        assert torch.equal(share, whole[rows]), (r, diff)
+    assert fa.launches_by_variant["wgmma"] == fa.launches == n + 1, \
+        dict(fa.launches_by_variant)
+    wq, wk, wv = flat(q, k, v)
+    sq, sk, sv = flat(q[:1], k[:1], v[:1])
+    whole_ms = graph_ms(lambda: fa.flash_attention(wq, wk, wv))
+    share_ms = graph_ms(lambda: fa.flash_attention(sq, sk, sv))
+    b_ms, b_by = flash_bound(sq, sk)
+    print(f"train share, flash_attention q {tuple(wq.shape)} over k/v "
+          f"{tuple(wk.shape)} causal bf16 (wgmma), {n} data ranks, on {card}: "
+          f"each rank's call on its rows (batch_specs under MeshView) == "
+          f"those rows of the whole-batch call bitwise (max |diff| "
+          f"{diff:.1e}); rank 0's share q {tuple(sq.shape)} device "
+          f"{share_ms:.5f} ms vs whole {whole_ms:.5f} ms (graph replays of "
+          f"the kernel alone; share/whole {share_ms / whole_ms:.3f}); "
+          f"share's bound {b_ms:.5f} ms ({b_by})")
+    return dict(share_ms=share_ms, whole_ms=whole_ms, bound_ms=b_ms)
+
+
+def train_arm(cfg, opt, batches, mesh=None) -> dict:
+    """``TRAIN_MESH_STEPS`` steps of ``make_train_step`` from seed-0
+    weights, without a mesh or sharded on ``mesh``: losses, the state
+    after the last step, ms a step, peak memory above what was allocated
+    before the arm (the other arm's state may still be held), flash
+    launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, shard_state)
+
+    step = make_train_step(cfg, opt, constant(3e-4))
+    ctx = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    base = torch.cuda.memory_allocated()
+    with ctx:
+        state = init_train_state(torch.Generator("cuda").manual_seed(0), cfg,
+                                 opt, device="cuda")
+        if mesh is not None:
+            state = shard_state(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses, ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    return dict(state=state, losses=torch.stack(losses), ms=ms,
+                peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                launches=fa.launches, by_variant=dict(fa.launches_by_variant))
+
+
+def state_leaves(state) -> list:
+    out = list(state["params"].parameters())
+    for kind in ("m", "v"):
+        for m in state["opt"][kind]:
+            out.extend(m.values() if isinstance(m, dict) else [m])
+    return out + [state["opt"]["step"]]
+
+
+def train_mesh(card: str) -> None:
+    """Phase 12(b) and (c): the sharded step on a 1-rank NCCL mesh against
+    the step without one, float32 and int8 moments; the int8 arm's state
+    saved from the mesh and restored without one."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import AdamWCfg
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = cut_depth(get_config("qwen2-1.5b"), TRAIN_MESH_LAYERS).replace(
+        use_flash=True)
+    g = torch.Generator("cuda").manual_seed(3)
+    batches = [{k: torch.randint(0, cfg.vocab_size, (2, 4096), generator=g,
+                                 device="cuda", dtype=torch.int32)
+                for k in ("tokens", "labels")}
+               for _ in range(TRAIN_MESH_STEPS)]
+    per_step = flash_launches_per_step(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda",
+                         init_method=f"file://{tmp}/store")
+        try:
+            assert dist.get_backend() == "nccl", dist.get_backend()
+            for state_dtype in ("float32", "int8"):
+                opt = AdamWCfg(state_dtype=state_dtype)
+                plain = train_arm(cfg, opt, batches)
+                meshed = train_arm(cfg, opt, batches, mesh)
+                assert "specs" in meshed["state"]
+                same = torch.equal(plain["losses"], meshed["losses"])
+                worst = max(float((a.detach().float() - b.detach().float())
+                                  .abs().max())
+                            for a, b in zip(state_leaves(plain["state"]),
+                                            state_leaves(meshed["state"]),
+                                            strict=True))
+                assert same and worst == 0.0, (plain["losses"],
+                                               meshed["losses"], worst)
+                assert plain["launches"] == meshed["launches"] == \
+                    per_step * TRAIN_MESH_STEPS, (plain["launches"],
+                                                  meshed["launches"])
+                assert meshed["by_variant"]["wgmma"] == meshed["launches"]
+                print(f"train mesh, qwen2-1.5b at full width "
+                      f"({cfg.n_layers} layers), bf16 activations over f32 "
+                      f"params, use_flash, remat {cfg.remat}, seq 4096, batch "
+                      f"2, {state_dtype} moments, 1-rank NCCL ('data', "
+                      f"'model') mesh, on {card}: {TRAIN_MESH_STEPS} losses "
+                      f"{[round(float(x), 6) for x in meshed['losses']]} "
+                      f"bitwise equal to the step without a mesh, state after "
+                      f"step {TRAIN_MESH_STEPS} bitwise equal (max |diff| "
+                      f"{worst:.1e}); flash launches {meshed['launches']} "
+                      f"(mesh) {plain['launches']} (none) = {per_step} a step; "
+                      f"ms a step {[round(x, 1) for x in meshed['ms']]} (mesh) "
+                      f"{[round(x, 1) for x in plain['ms']]} (none); peak "
+                      f"memory above the arm's start "
+                      f"{meshed['peak_gib']:.2f} GiB (mesh) "
+                      f"{plain['peak_gib']:.2f} GiB (none)")
+                del plain
+                if state_dtype == "int8":
+                    # (c) saved from the mesh, restored without one
+                    d = Path(tmp) / "ckpt"
+                    t0 = time.perf_counter()
+                    with use_mesh(mesh):
+                        ckpt.save_checkpoint(d, meshed["state"],
+                                             TRAIN_MESH_STEPS)
+                    save_s = time.perf_counter() - t0
+                    fresh = init_train_state(torch.Generator("cuda").manual_seed(1),
+                                             cfg, opt, device="cuda")
+                    t0 = time.perf_counter()
+                    ckpt.restore_checkpoint(d, fresh)
+                    restore_s = time.perf_counter() - t0
+                    for a, b in zip(state_leaves(fresh),
+                                    state_leaves(meshed["state"]), strict=True):
+                        assert torch.equal(a, b)
+                    print(f"train mesh checkpoint on {card}: the int8 arm's "
+                          f"state saved from the 1-rank mesh ({save_s:.1f} s) "
+                          f"and restored without a mesh ({restore_s:.1f} s), "
+                          f"every leaf bitwise equal")
+                    del fresh
+                del meshed
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+
+def state_bytes() -> None:
+    """Phase 12(d): a rank's train-state bytes at rest from
+    ``param_specs`` over ``MeshView`` (every rank holds the same: the
+    splits are even), shapes on the meta device."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import MeshView, local_shape, param_specs
+
+    for arch in ("qwen2-1.5b", "llama4-maverick-400b-a17b"):
+        cfg = get_config(arch)
+        with torch.device("meta"):
+            params = M.init_params(cfg, generator=torch.Generator(),
+                                   device="meta", for_training=True)
+        p_bytes = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
+        cells = []
+        for shape in ((None,) + STATE_MESHES):
+            f32 = i8 = 0
+            view = (MeshView(shape, ("data", "model"), (0, 0))
+                    if shape else None)
+            specs = param_specs(params, view) if view else {}
+            for name, p in params.named_parameters():
+                local = (local_shape(specs[name], p.shape, view) if view
+                         else tuple(p.shape))
+                n = math.prod(local)
+                rows = n // local[-1] if local else 1
+                f32 += n * (p_bytes + 8)
+                i8 += n * (p_bytes + 2) + 8 * rows  # q + a f32 scale a row, m and v
+            cells.append((shape, f32, i8))
+        whole = cells[0]
+        print(f"train state at rest per rank, {arch} FULL "
+              f"({cfg.param_dtype} params): whole state {whole[1] / 2**30:.2f} "
+              f"GiB (f32 moments) {whole[2] / 2**30:.2f} GiB (int8); "
+              + "; ".join(f"{s[0]}x{s[1]}: {f / 2**30:.3f} / {i / 2**30:.3f} GiB"
+                          for s, f, i in cells[1:]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4263,6 +4526,12 @@ def main() -> int:
     tp_engine(card)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s (limit 40)")
     phase_done("phase 11")
+    t12 = time.perf_counter()
+    train_share(card)
+    train_mesh(card)
+    state_bytes()
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s (limit 40)")
+    phase_done("phase 12")
 
     t = kres["timings"]["mixed"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

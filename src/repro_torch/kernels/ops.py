@@ -102,8 +102,17 @@ def _ref_grouped(q, k, v, window):
 class _FlashGrouped(torch.autograd.Function):
     """JAX's ``custom_vjp`` ``_flash_grouped``: the kernel forward; the
     backward recomputes ``_ref_grouped`` from the saved q, k, v and returns
-    its vector-Jacobian product.  The mesh (``shard_map``) branch of JAX's
-    forward waits for the multi-GPU slice."""
+    its vector-Jacobian product.
+
+    Under a mesh JAX runs the forward kernel under ``shard_map`` over the
+    "act_batch" axes, one call per device on its batch rows.  In the port
+    that is what a rank's call already is: the sharded train step cuts the
+    global batch to the rank's rows (``train_step.batch_specs``) before
+    the forward, so q, k and v
+    here hold exactly those rows and the kernel runs on them; where the
+    batch does not divide over the batch axes, the rows are not split and
+    every rank runs the kernel on the whole batch.  No collective is
+    needed: attention never mixes batch rows."""
 
     @staticmethod
     def forward(ctx, q, k, v, window):

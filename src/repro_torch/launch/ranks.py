@@ -5,7 +5,8 @@ of the serving sweep's subprocess loop.
 ``run_ranks("package.module:function", n, args)`` starts ``n`` Python
 processes; each sets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE`` and
 ``LOCAL_WORLD_SIZE``, keeps torch to one thread, starts the default process
-group (gloo for ``device="cpu"``, NCCL for ``cuda``) over a ``file://``
+group (NCCL for ``device="cuda"``, the default, one card per rank;
+gloo for ``cpu``) over a ``file://``
 store in a temporary directory — so concurrent jobs never contend for a
 port — calls ``function(*args)`` and pickles its result back.  The function
 must be importable by name in a fresh interpreter: the children get the
@@ -36,12 +37,23 @@ class RankFailure(RuntimeError):
 
 
 def run_ranks(target: str, n: int, args: Sequence[Any] = (), *,
-              device: str = "cpu", timeout: float = 600.0) -> List[Any]:
+              device: str = "cuda", timeout: float = 600.0) -> List[Any]:
     """``target(*args)`` on ``n`` ranks; returns each rank's result, in rank
-    order."""
+    order.  ``device`` is ``cuda`` (the default: NCCL, one card per rank;
+    raises before any rank starts where the host has fewer cards than
+    ranks, and nothing drops to the CPU) or ``cpu`` (gloo)."""
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
     backend = "nccl" if device.startswith("cuda") else "gloo"
+    if backend == "nccl":
+        import torch
+
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            raise RuntimeError(
+                f"run_ranks on device {device!r} needs one CUDA device per "
+                f"rank: {n} ranks, {have} devices (device='cpu' runs gloo "
+                f"ranks on the CPU)")
     with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
         tmp = Path(tmp)
         spec = tmp / "spec.pkl"

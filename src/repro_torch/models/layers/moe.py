@@ -21,7 +21,8 @@ The router runs in float32 (its weight stays float32 in the serving
 layout: ``FLOAT32_LEAVES``); ``top_k`` breaks ties toward the lower expert
 index, as ``jax.lax.top_k`` does (a stable descending sort, where
 ``torch.topk`` promises no order).  The expert products are plain batched
-matrix products, as JAX's are.  ``lshard`` (sharding only) is dropped.
+matrix products, as JAX's are.  ``lshard`` (sharding only) is dropped;
+under a mesh the auxiliary losses are the global batch's (``_aux_losses``).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoECfg
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.mlp import mlp_fwd
+from repro_torch.parallel.sharding import batch_shards, batch_sum
 
 # leaves JAX reads in float32 (never cast to the activation dtype)
 FLOAT32_LEAVES = ("router",)
@@ -86,12 +88,18 @@ def _one_hot(idx, n: int, dtype):
 
 def _aux_losses(probs, idx, logits, num_experts: int) -> Dict:
     """Switch-style load-balance loss (top-1 assignment against the mean
-    router probability) and the router z-loss."""
-    load = torch.mean(_one_hot(idx[..., 0], num_experts, torch.float32),
-                      dim=(0, 1))
-    importance = torch.mean(probs, dim=(0, 1))
+    router probability) and the router z-loss.  Under a mesh whose batch
+    axes split the batch, the means are the global batch's: the load and
+    importance sums (and the z term's) are summed over the batch axes
+    before the product (``sharding.batch_sum``, differentiable), since a
+    mean over ranks of per-rank products is not the global loss."""
+    top1 = _one_hot(idx[..., 0], num_experts, torch.float32)
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    tokens = idx.shape[0] * idx.shape[1] * batch_shards()
+    load = batch_sum(torch.sum(top1, dim=(0, 1))) / tokens
+    importance = batch_sum(torch.sum(probs, dim=(0, 1))) / tokens
+    z = batch_sum(torch.sum(lse2)) / tokens
     lb = num_experts * torch.sum(load * importance)
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return {"moe_lb_loss": lb, "moe_z_loss": z}
 
 

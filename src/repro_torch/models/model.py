@@ -50,6 +50,7 @@ from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers import embeddings as emb
 from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.norms import rmsnorm
+from repro_torch.parallel.sharding import batch_shards, batch_sum
 
 MOE_LB_WEIGHT = 0.01
 MOE_Z_WEIGHT = 1e-3
@@ -212,14 +213,22 @@ def loss_fn(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
     """-> (total loss, metrics {"ce_loss", "moe_lb_loss", "moe_z_loss"}):
     the cross entropy plus the MoE layers' summed load-balance and z losses
     under ``MOE_LB_WEIGHT`` and ``MOE_Z_WEIGHT`` (zero without an MoE
-    FFN); ``batch["loss_mask"]``, when present, weights the tokens."""
+    FFN); ``batch["loss_mask"]``, when present, weights the tokens.
+
+    Under a mesh whose batch axes split the batch, ``batch`` holds this
+    rank's rows and the loss is the global batch's, on every rank: the
+    numerator and the denominator (the global mask sum, or token count)
+    are summed over the batch axes (``sharding.batch_sum``), so a rank's
+    gradient is its rows' share of the global loss's."""
     logits, aux = forward(params, cfg, batch)
     per_tok = _xent(logits, batch["labels"])
     if "loss_mask" in batch:
         mask = batch["loss_mask"].float()
-        loss = torch.sum(per_tok * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        loss = (batch_sum(torch.sum(per_tok * mask))
+                / torch.clamp_min(batch_sum(torch.sum(mask)), 1.0))
     else:
-        loss = torch.mean(per_tok)
+        loss = (batch_sum(torch.sum(per_tok))
+                / (per_tok.numel() * batch_shards()))
     total = (loss + MOE_LB_WEIGHT * aux["moe_lb_loss"]
              + MOE_Z_WEIGHT * aux["moe_z_loss"])
     return total, {"ce_loss": loss, **aux}

@@ -8,6 +8,15 @@ Parameters, gradients and moments are lists of tensors in one order (a
 updates IN PLACE under ``torch.no_grad()`` — parameters, moments (an int8
 moment's ``q`` and ``qscale``) and, when clipping, the gradients — so a
 step holds no second copy of any of them.
+
+Sharded (``apply_updates(..., specs=)`` under a mesh): every leaf is the
+rank's shard of a parameter laid out by its spec
+(``parallel.sharding.param_specs``).  The update is elementwise, so it
+runs on the shards as they are; the two whole-tensor reductions go over
+the mesh: the clipping norm counts each element once (a leaf replicated
+over 'model' is held by every 'model' rank and is counted once, not once
+per rank), and an int8 moment's row maximum is taken over the ranks that
+split its last axis.
 """
 from __future__ import annotations
 
@@ -51,35 +60,76 @@ def init_opt_state(params, cfg: AdamWCfg):
     }
 
 
-def global_norm(tensors):
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+def global_norm(tensors, replicas=None, group=None):
+    """sqrt of the sum of squares of every element of ``tensors``.  Over
+    shards: ``replicas`` gives each tensor's number of ranks that hold the
+    same shard and ``group`` the ranks of the mesh; each shard's sum is
+    divided by its replicas and the total summed over the group, so each
+    element of the whole tensors counts once."""
+    if group is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tensors))
+    import torch.distributed as dist
+
+    total = sum(torch.sum(torch.square(x.float())) / r
+                for x, r in zip(tensors, replicas))
+    dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, replicas=None, group=None):
     """Scales ``grads`` IN PLACE by min(1, max_norm / (norm + 1e-9)) and
-    returns (grads, norm)."""
-    gn = global_norm(grads)
+    returns (grads, norm); ``replicas``/``group`` as ``global_norm``."""
+    gn = global_norm(grads, replicas, group)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     for g in grads:
         g.copy_(g.float() * scale)
     return grads, gn
 
 
+def _shard_reductions(specs, mesh):
+    """(replicas per leaf, the mesh's group, the row group per leaf) for
+    leaves laid out by ``specs`` on ``mesh``; no groups on a mesh of one
+    rank, where every reduction is the rank's own."""
+    from repro_torch.parallel.sharding import axes_size, axis_group, axis_names
+
+    world = axes_size(mesh, axis_names(mesh))
+    if world == 1:
+        return None, None, [None] * len(specs)
+    replicas, rows = [], []
+    for spec in specs:
+        held = 1
+        for entry in spec:
+            held *= axes_size(mesh, entry)
+        replicas.append(world // held)
+        last = spec[-1] if spec else None
+        rows.append(axis_group(mesh, last) if axes_size(mesh, last) > 1
+                    else None)
+    return replicas, axis_group(mesh, axis_names(mesh)), rows
+
+
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: AdamWCfg, lr):
+def apply_updates(params, grads, state, cfg: AdamWCfg, lr, *, specs=None,
+                  mesh=None):
     """One AdamW step, IN PLACE on ``params`` (a ``Model`` or list of
     tensors), ``state`` and (when clipping) ``grads``.  ``lr`` is a float
     or a 0-dim tensor.  An int8 moment is dequantized, updated in float32
-    and requantized, as JAX does.  Returns (params, state, metrics)."""
+    and requantized, as JAX does.  With ``specs`` (each leaf's spec, in
+    order) and ``mesh``, the leaves are this rank's shards (module
+    docstring).  Returns (params, state, metrics)."""
     metrics = {}
+    leaves = _leaves(params)
+    replicas, group, rows = (_shard_reductions(specs, mesh)
+                             if specs is not None else
+                             (None, None, [None] * len(leaves)))
     if cfg.grad_clip is not None:
-        grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gn = clip_by_global_norm(grads, cfg.grad_clip, replicas, group)
         metrics["grad_norm"] = gn
     step = state["step"] + 1
     bc1 = 1 - cfg.b1 ** step.float()
     bc2 = 1 - cfg.b2 ** step.float()
-    for p, g, m, v in zip(_leaves(params), grads, state["m"], state["v"]):
+    for p, g, m, v, row in zip(leaves, grads, state["m"], state["v"], rows):
         gf = g.float()
         mf = dequantize(m) if is_quantized(m) else m
         vf = dequantize(v) if is_quantized(v) else v
@@ -90,7 +140,7 @@ def apply_updates(params, grads, state, cfg: AdamWCfg, lr):
         p.copy_(pf - lr * (u + cfg.weight_decay * pf))
         for moment, new in ((m, mf), (v, vf)):
             if is_quantized(moment):
-                for k, t in quantize(new).items():
+                for k, t in quantize(new, row).items():
                     moment[k].copy_(t)
     state["step"] = step
     return params, state, metrics

@@ -1,39 +1,50 @@
-"""Logical-axis layout rules: the serving half of the JAX package's
+"""Logical-axis layout rules: the port of the JAX package's
 ``parallel/sharding.py``.
 
 Model code never names mesh axes.  A leaf's layout is a tuple of *logical*
-axis names (``serve_step.STATE_AXES``), and a rules table maps each logical
-name to mesh axes.  A spec is a plain tuple with one entry per dimension,
-as a JAX ``PartitionSpec`` holds them: ``None`` (replicated), a mesh-axis
-name, or a tuple of two or more names.
+axis names (``serve_step.STATE_AXES``, ``PARAM_AXES``), and a rules table
+maps each logical name to mesh axes.  A spec is a plain tuple with one
+entry per dimension, as a JAX ``PartitionSpec`` holds them: ``None``
+(replicated), a mesh-axis name, or a tuple of two or more names.
 
 The rule functions read only a mesh's axis names and sizes, so they take a
 ``torch.distributed.device_mesh.DeviceMesh`` (``launch.mesh.make_mesh``) or
 any object with ``axis_names`` and a ``shape`` mapping of name to size.
 ``axis_group`` and ``axis_coordinate`` need a real ``DeviceMesh`` (or,
 for the coordinate, a ``MeshView``): they give the process group over some
-of its axes and this rank's index along them.  ``head_slice`` and
-``gather_heads`` build the serving engine's KV-head split on them: a rank's
-heads of a layer, and the all-gather that makes its attention output whole
-before the out-projection.
+of its axes and this rank's index along them.
+
+Serving: ``head_slice`` and ``gather_heads`` build the engine's KV-head
+split on them: a rank's heads of a layer, and the all-gather that makes
+its attention output whole before the out-projection.
+
+Training: ``PARAM_AXES`` and ``param_specs`` lay out every parameter leaf
+by its name, as JAX's do.  Where JAX places a leaf with a
+``NamedSharding`` and lets GSPMD partition the step, a port rank holds
+exactly its ``local_slices`` of the leaf (``param_shardings``,
+``shard_tensor``), gathers it whole for use (``gather_tensor``), and
+sums gradients over the batch axes before keeping its own slice
+(``constrain_like_params``).  ``batch_sum`` is the differentiable sum over
+the ranks that split the batch, through which the loss and the MoE
+balance terms are normalized over the global batch.
 
 Parts of the JAX module with no counterpart here:
 
 - ``shard_map``: the port runs one process per rank, and each rank calls
-  its kernel on its own slice of the tensors (``serve.decode_attention``).
+  its kernel on its own slice of the tensors (``serve.decode_attention``,
+  ``kernels.ops.flash_attention_grouped``).
 - ``lshard``: a sharding constraint has nothing to constrain without a
-  compiler that places tensors; the port's one constraint on the serving
-  path is the explicit all-gather before the out-projection
-  (``models.layers.attention._out_proj_replicated``).
-- ``PARAM_AXES``, ``param_specs``, ``constrain_like_params`` and
-  ``param_shardings``: serving replicates every weight; they come with
-  multi-GPU training (ROADMAP.md, Queue 1 item 2).
+  compiler that places tensors; the port's constraints are its explicit
+  collectives (``gather_heads``, ``constrain_like_params``).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
 
 # ---------------------------------------------------------------------------
 # Mesh reading: a DeviceMesh or a stand-in with ``axis_names`` and ``shape``
@@ -116,8 +127,6 @@ def axis_group(mesh, entry):
         return mesh.get_group(axes[0])
     key = (id(mesh), axes)
     if key not in _groups:
-        import torch.distributed as dist
-
         names = axis_names(mesh)
         ranks = mesh.mesh.permute(
             [names.index(a) for a in names if a not in axes]
@@ -372,9 +381,269 @@ def gather_heads(o, kvH: int):
     mesh, h = _head_tp(kvH)
     if mesh is None:
         return o
-    import torch.distributed as dist
+    # heads first: gathered on dim 0
+    return all_gather_cat(o.movedim(-3, 0), axis_group(mesh, h)).movedim(0, -3)
 
-    local = o.movedim(-3, 0).contiguous()  # heads first: gathered on dim 0
-    full = local.new_empty((kvH,) + local.shape[1:])
-    dist.all_gather_into_tensor(full, local, group=axis_group(mesh, h))
-    return full.movedim(0, -3)
+
+# ---------------------------------------------------------------------------
+# Parameter layouts, derived from leaf names (the training half)
+
+# leaf name -> logical axes of the *unstacked* leaf (a stacked stage adds a
+# leading "layer" dim); JAX's table, entry for entry
+PARAM_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    # embeddings / heads
+    "tok_embed": ("vocab", "fsdp"),
+    "pos_embed": (None, None),
+    "out_head": ("fsdp", "vocab"),
+    "frontend_proj": (None, "fsdp"),
+    # norms
+    "scale": (None,),
+    "bias": (None,),
+    # attention (grouped layout; exactly one of "act_heads"/"attn_hd" maps
+    # to 'model' depending on the heads-TP rule)
+    "wq": ("fsdp", None, "act_heads", "attn_hd"),
+    "wk": ("fsdp", None, "attn_hd"),
+    "wv": ("fsdp", None, "attn_hd"),
+    "wo": (None, "act_heads", "attn_hd", "fsdp"),
+    "bq": (None, "act_heads", "attn_hd"),
+    "bk": (None, "attn_hd"),
+    "bv": (None, "attn_hd"),
+    # dense mlp
+    "w_gate": ("fsdp", "tensor"),
+    "w_up": ("fsdp", "tensor"),
+    "w_down": ("tensor", "fsdp"),
+    # moe
+    "router": ("fsdp", None),
+    "we_gate": ("expert", "fsdp", None),
+    "we_up": ("expert", "fsdp", None),
+    "we_down": ("expert", None, "fsdp"),
+    # mamba
+    "in_proj": ("fsdp", "tensor"),
+    "conv_w": (None, "tensor"),
+    "conv_b": ("tensor",),
+    "x_proj": ("tensor", None),
+    "dt_w": (None, "tensor"),
+    "dt_b": ("tensor",),
+    "A_log": ("tensor", None),
+    "ssm_D": ("tensor",),
+    "out_proj": ("tensor", "fsdp"),
+    # xlstm
+    "up_proj": ("fsdp", "tensor"),
+    "xq": ("tensor", None),
+    "xk": ("tensor", None),
+    "xv": ("tensor", None),
+    "wi": ("tensor", None),
+    "wf": ("tensor", None),
+    "bi": (None,),
+    "bf": (None,),
+    "wo_gate": ("tensor", None),
+    "down_proj": ("tensor", "fsdp"),
+    "w_ifzo": ("fsdp", "tensor"),
+    "r_ifzo": (None, "tensor"),
+    "b_ifzo": ("tensor",),
+    "skip_scale": (None,),
+}
+
+
+def _leaf_spec(name: str, shape, rules, mesh=None) -> tuple:
+    """The spec of the parameter ``name`` (a ``Model`` parameter name, as
+    ``stages.0.0.mixer.wq``) of ``shape``.  The leaf's rule is its last
+    name.  A stage leaf always carries the stacked layer axis here; where
+    JAX's leaf has none (a one-repeat stage) the spec is JAX's, sanitized
+    on JAX's shape, with None in front — so the two specs agree on every
+    dim both have."""
+    path = name.split(".")
+    leaf = path[-1]
+    if leaf not in PARAM_AXES:
+        raise ValueError(f"no sharding rule for param leaf {name}")
+    axes = PARAM_AXES[leaf]
+    shape = tuple(shape)
+    lead = ()
+    if path[0] == "stages" and len(shape) == len(axes) + 1 and shape[0] == 1:
+        lead, shape = (None,), shape[1:]  # JAX's unstacked leaf
+    elif len(shape) == len(axes) + 1:  # stacked
+        axes = ("layer",) + axes
+    elif len(shape) != len(axes):
+        raise ValueError(f"param {name} has ndim {len(shape)}, rule expects "
+                         f"{len(axes)} (+1 stacked)")
+    spec = logical_spec(axes, rules)
+    if mesh is not None:
+        spec = sanitize_spec(spec, shape, mesh)
+    return lead + spec
+
+
+def param_specs(params, mesh=None, rules=None) -> Dict[str, tuple]:
+    """{parameter name: spec} over a ``Model`` (any device, ``meta``
+    included: only shapes are read), in ``named_parameters()`` order,
+    under ``mesh`` (default: the ambient one) and ``rules`` (default: the
+    ambient ones, else ``make_rules(mesh)``)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if rules is None:
+        rules = current_rules() or (make_rules(mesh) if mesh is not None else {})
+    return {name: _leaf_spec(name, p.shape, rules, mesh)
+            for name, p in params.named_parameters()}
+
+
+class Placement(NamedTuple):
+    """A leaf's place on a mesh, JAX's ``NamedSharding``: its spec and
+    this rank's slice of each dim."""
+    spec: tuple
+    slices: Tuple[slice, ...]
+
+
+def param_shardings(params, mesh=None, rules=None) -> Dict[str, Placement]:
+    """{parameter name: ``Placement``} over a ``Model`` of full (logical)
+    shapes."""
+    mesh = mesh if mesh is not None else current_mesh()
+    shapes = {n: p.shape for n, p in params.named_parameters()}
+    return {n: Placement(s, local_slices(s, shapes[n], mesh))
+            for n, s in param_specs(params, mesh, rules).items()}
+
+
+def shard_tensor(full: torch.Tensor, spec: Sequence, mesh=None) -> torch.Tensor:
+    """This rank's shard of ``full`` under ``spec``: a contiguous copy of
+    its ``local_slices`` (the full tensor itself where nothing splits)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if all(axes_size(mesh, e) == 1 for e in spec):
+        return full
+    return full[local_slices(spec, full.shape, mesh)].contiguous()
+
+
+def _members(mesh, entry) -> List[int]:
+    """The global ranks of this rank's group along a spec entry's axes, in
+    the entry's row-major coordinate order (``axis_coordinate``)."""
+    names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
+    axes = _axes(entry)
+    grid = mesh.mesh
+    coord = {a: mesh.get_local_rank(a) for a in names}
+    out = []
+    for flat in range(axes_size(mesh, axes)):
+        r = flat
+        for a in reversed(axes):
+            coord[a] = r % sizes[a]
+            r //= sizes[a]
+        out.append(int(grid[tuple(coord[a] for a in names)]))
+    return out
+
+
+@torch.no_grad()
+def gather_tensor(local: torch.Tensor, spec: Sequence, mesh=None) -> torch.Tensor:
+    """The whole tensor from every rank's shard under ``spec``: an
+    all-gather over each split dim's axes, the shards laid out in
+    coordinate order (a multi-axis entry such as ``("pod", "data")``
+    row-major over its axes, as ``axis_coordinate`` numbers them).  The
+    tensor itself (detached) where nothing splits."""
+    mesh = mesh if mesh is not None else current_mesh()
+    out = local.detach()
+    for dim, entry in enumerate(tuple(spec)):
+        n = axes_size(mesh, entry)
+        if n == 1:
+            continue
+        group = axis_group(mesh, entry)
+        x = out.movedim(dim, 0)
+        full = all_gather_cat(x, group)
+        members = _members(mesh, entry)
+        order = [members.index(g) for g in dist.get_process_group_ranks(group)]
+        if order != list(range(n)):  # group order -> coordinate order
+            parts = full.view((n,) + tuple(x.shape))
+            full = parts[torch.tensor(order).argsort()].reshape(full.shape)
+        out = full.movedim(0, dim)
+    return out
+
+
+def constrain_like_params(grads: Sequence[torch.Tensor], specs: Sequence,
+                          mesh=None) -> List[torch.Tensor]:
+    """Gradients of the whole parameters (one per leaf, in ``specs``'
+    order) -> this rank's shards of their sums over the batch axes: an
+    all-reduce over the ranks that split the batch (``batch_axes``; none
+    where the batch is replicated), then the rank's ``local_slices`` of
+    each leaf.  JAX's sharding constraint on the gradient tree, made
+    real.
+
+    An all-reduce and not a reduce-scatter, on NCCL too: the slice a rank
+    keeps is cut by the leaf's spec, whose split axes are not the batch
+    group's in general (a leaf split over 'model' only, or replicated,
+    keeps a whole sum on every batch rank), and a reduce-scatter over the
+    batch group hands each rank one block of dim 0 in group order.  The
+    all-reduce serves every spec with one path, at twice a
+    reduce-scatter's bytes on the wire; scattering where the spec splits
+    a dim over exactly the batch axes is later work."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return list(grads)
+    entry = batch_axes()
+    group = axis_group(mesh, entry) if entry is not None else None
+    out = []
+    for g, spec in zip(grads, specs):
+        if group is not None:
+            g = g.contiguous()  # NCCL reduces contiguous tensors only
+            dist.all_reduce(g, group=group)
+        out.append(shard_tensor(g, spec, mesh))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The batch axes: the sums over the ranks that split the batch
+
+
+def batch_axes():
+    """The ambient rules' "act_batch" entry when it splits over more than
+    one rank, else None (no mesh, no batch axes, or a batch that the train
+    step found not to divide and left whole on every rank)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    entry = _entry(current_rules().get("act_batch"))
+    return entry if axes_size(mesh, entry) > 1 else None
+
+
+def batch_shards() -> int:
+    """The number of ranks that split the batch (1 without ``batch_axes``)."""
+    entry = batch_axes()
+    return 1 if entry is None else axes_size(current_mesh(), entry)
+
+
+def all_gather_cat(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated on dim 0, in the
+    group's rank order (``gather_tensor`` reorders to coordinate order
+    where the two differ)."""
+    x = x.contiguous()
+    out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
+                      + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce sum over a group; the gradient passes through unchanged.
+    Every rank then holds the same value and differentiates it with
+    respect to its own term only, so the gradients summed over the group
+    are the summed value's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` on every rank, differentiably: a rank's
+    gradient is that of its own term."""
+    return _SumOver.apply(x, group)
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks that split the batch (``batch_axes``),
+    differentiably (``sum_over``), so the gradients summed over the batch
+    group (``constrain_like_params``) are the global value's.  ``x``
+    itself where the batch is not split."""
+    entry = batch_axes()
+    if entry is None:
+        return x
+    return sum_over(x, axis_group(current_mesh(), entry))

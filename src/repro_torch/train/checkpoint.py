@@ -24,8 +24,11 @@ leaves (``np.savez`` writes ml_dtypes' bfloat16 as 2-byte voids, under the
 same manifest dtype), but JAX's restore reads bf16 leaves from neither
 package's files.
 
-Restoring onto a mesh (``mesh=``, ``specs=``) comes with multi-GPU
-training.
+Sharded states (``train_step.shard_state``): under the state's mesh,
+``save_checkpoint`` gathers every leaf and the mesh's first rank writes
+the logical arrays, so a checkpoint written from N ranks restores at any
+M, on one device, and in JAX; ``restore_checkpoint(mesh=, specs=)``
+reads each logical array and keeps the rank's slice of it.
 """
 from __future__ import annotations
 
@@ -39,6 +42,10 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import (axis_group, axis_names,
+                                           current_mesh, gather_tensor,
+                                           local_slices)
 
 _MANIFEST = "manifest.json"
 _BF16 = "bfloat16"
@@ -64,21 +71,31 @@ def flatten_state(state) -> Dict[str, Tuple[torch.Tensor, bool]]:
     ({"params": Model, "opt": {"m": [...], "v": [...], "step"}}): the
     parameters, each moment (an int8 moment's ``q`` and ``qscale``) and
     the step, keyed as JAX's ``keystr`` paths (module docstring)."""
-    out = {}
+    return {k: (t, unstack) for k, t, unstack, _ in walk_state(state)}
+
+
+def walk_state(state, specs=None):
+    """(key, tensor, unstack, spec) for every leaf of a train state, in
+    ``flatten_state``'s order, with its spec from the ``train_state_specs``
+    tree ``specs`` (None without)."""
     leaves = list(state["params"].parameters())
     opt = state["opt"]
-    for (key, unstack), p, m, v in zip(_param_keys(state["params"]), leaves,
-                                       opt["m"], opt["v"]):
-        out["['params']" + key] = (p, unstack)
-        for name, moment in (("m", m), ("v", v)):
+    n = len(leaves)
+    sp = ({"p": list(specs["params"].values()), **specs["opt"]} if specs
+          else {"p": [None] * n, "m": [None] * n, "v": [None] * n})
+    for i, ((key, unstack), p) in enumerate(zip(_param_keys(state["params"]),
+                                                leaves)):
+        yield "['params']" + key, p, unstack, sp["p"][i]
+        for name in ("m", "v"):
+            moment, spec = opt[name][i], sp[name][i]
             base = f"['opt']['{name}']" + key
             if isinstance(moment, dict):
                 for k, t in moment.items():
-                    out[base + f"['{k}']"] = (t, unstack)
+                    yield (base + f"['{k}']", t, unstack,
+                           spec[k] if spec is not None else None)
             else:
-                out[base] = (moment, unstack)
-    out["['opt']['step']"] = (opt["step"], False)
-    return out
+                yield base, moment, unstack, spec
+    yield "['opt']['step']", opt["step"], False, () if specs else None
 
 
 def _to_host(t: torch.Tensor, unstack: bool) -> np.ndarray:
@@ -97,12 +114,36 @@ def save_checkpoint(ckpt_dir, state, step: int, *, background: bool = False,
                     keep: int = 3) -> Optional[threading.Thread]:
     """Write ``<ckpt_dir>/step_<N>/``.  The state is copied to host memory
     before this returns; with ``background=True`` a writer thread does the
-    file IO and is returned (join it before the next save)."""
+    file IO and is returned (join it before the next save).
+
+    A sharded state (one with "specs") is saved under its mesh (it raises
+    outside one), by every rank of it: each leaf is gathered whole, and the mesh's first rank
+    writes.  Without ``background`` every rank returns once the checkpoint
+    is on disk; with it, the writer's thread is the first rank's (None on
+    the others), and the caller joins it and synchronizes the ranks."""
     ckpt_dir = Path(ckpt_dir)
+    mesh = current_mesh() if "specs" in state else None
+    if "specs" in state and mesh is None:
+        raise ValueError("a sharded state is gathered on its own mesh: "
+                         "call save_checkpoint under use_mesh(its mesh)")
+    writes = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        group = axis_group(mesh, axis_names(mesh))
+        writes = dist.get_rank() == int(mesh.mesh.flatten()[0])
     host, dtypes = {}, {}
-    for key, (t, unstack) in flatten_state(state).items():
-        host[key] = _to_host(t, unstack)
-        dtypes[key] = _BF16 if t.dtype == torch.bfloat16 else str(host[key].dtype)
+    for key, t, unstack, spec in walk_state(state, state.get("specs")):
+        if mesh is not None:
+            t = gather_tensor(t, spec, mesh)
+        if writes:
+            host[key] = _to_host(t, unstack)
+            dtypes[key] = (_BF16 if t.dtype == torch.bfloat16
+                           else str(host[key].dtype))
+    if not writes:
+        if not background:
+            dist.barrier(group=group)  # the first rank has written
+        return None
 
     def _write():
         final = ckpt_dir / f"step_{step:08d}"
@@ -125,6 +166,8 @@ def save_checkpoint(ckpt_dir, state, step: int, *, background: bool = False,
         t.start()
         return t
     _write()
+    if mesh is not None:
+        dist.barrier(group=group)
     return None
 
 
@@ -150,11 +193,11 @@ def restore_checkpoint(ckpt_dir, state, *, step: Optional[int] = None,
     """Copy checkpoint ``step`` (default: the latest) into ``state``, a
     port train state of the same structure (the loop's fresh state), in
     place on its tensors' devices, and return it.  Every leaf of
-    ``state`` must be in the file with its shape."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh is not ported yet: it comes with "
-            "multi-GPU training")
+    ``state`` must be in the file with its shape.  With ``mesh`` and
+    ``specs`` (a ``train_state_specs`` tree of the logical shapes),
+    ``state`` is a sharded state on ``mesh`` and each leaf receives this
+    rank's slice of the logical array; the state keeps ``specs``."""
+    sharded = mesh is not None and specs is not None
     ckpt_dir = Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -163,7 +206,7 @@ def restore_checkpoint(ckpt_dir, state, *, step: Optional[int] = None,
     dtypes = {k: v["dtype"] for k, v in
               json.loads((d / _MANIFEST).read_text())["keys"].items()}
     with np.load(d / "tensors.npz") as data:
-        for key, (t, unstack) in flatten_state(state).items():
+        for key, t, unstack, spec in walk_state(state, specs if sharded else None):
             arr = data[key]
             if dtypes[key] == _BF16:
                 src = torch.from_numpy(arr.view(np.uint16).view(np.int16)
@@ -172,8 +215,12 @@ def restore_checkpoint(ckpt_dir, state, *, step: Optional[int] = None,
                 src = torch.from_numpy(np.array(arr))
             if unstack:
                 src = src[None]
+            if sharded:
+                src = src[local_slices(spec, src.shape, mesh)]
             if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: checkpoint shape {tuple(src.shape)}, "
                                  f"state shape {tuple(t.shape)}")
             t.copy_(src)
+    if sharded:
+        state["specs"] = specs
     return state

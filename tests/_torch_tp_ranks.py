@@ -195,7 +195,8 @@ def check_tp_case(jax_ref, arch: str, tree, n: int, engine_kw: dict,
 
     want, jstats = jax_ref
     ranks = run_ranks("_torch_tp_ranks:serve_rank", n,
-                      (arch, tree, n, engine_kw, tier_wave), timeout=timeout)
+                      (arch, tree, n, engine_kw, tier_wave), device="cpu",
+                      timeout=timeout)
     split = kv_heads % n == 0
     tp_keys = ("kv_shards", "n_devices", "kv_pool_bytes_per_device")
     for r, (transcript, st, heads) in enumerate(ranks):

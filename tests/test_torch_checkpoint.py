@@ -18,7 +18,9 @@ llama-3.2-vision smoke config (frontend, cross layers) for the key layout:
   one written by the port's in JAX's: the continued losses match JAX's
   straight run at rtol = atol = 1e-4, with float32 and int8 moments;
 - the background writer saves the state as it was when
-  ``save_checkpoint`` returned, not as the next in-place step left it.
+  ``save_checkpoint`` returned, not as the next in-place step left it;
+- a restore onto a mesh (``mesh=``, ``specs=``) gives a ``MeshView``
+  rank's sharded state exactly its slice of each logical array.
 
 JAX is imported lazily.
 """
@@ -113,10 +115,42 @@ def test_gc_keeps_the_newest_three_and_mesh_restore_is_not_ported(tmp_path):
         "step_00000003", "step_00000004", "step_00000005"]
     assert C.latest_step(tmp_path) == 5
     assert C.latest_step(tmp_path / "none") is None
-    with pytest.raises(NotImplementedError, match="not ported"):
-        C.restore_checkpoint(tmp_path, state, mesh=object(), specs=object())
+    # restoring onto a mesh (ported with multi-GPU training) keeps the
+    # rank's slice of each logical array: rank (1, 0) of a (2, 1) mesh
+    from repro_torch.parallel import sharding as TS
+    from repro_torch.train import train_step as TT
+
+    view = TS.MeshView((2, 1), ("data", "model"), (1, 0))
+    with TS.use_mesh(view):
+        shard = TT.shard_state(_loop().init_or_restore()[0])
+    for t in C.flatten_state(shard).values():
+        t[0].data.zero_()
+    C.restore_checkpoint(tmp_path, shard, mesh=view, specs=shard["specs"])
+    whole = C.flatten_state(state)
+    split = 0
+    for key, t, _, spec in C.walk_state(shard, shard["specs"]):
+        want = whole[key][0]
+        want = want[TS.local_slices(spec, want.shape, view)]
+        split += t.shape != whole[key][0].shape
+        assert t.shape == want.shape and torch.equal(t, want), key
+    assert split > 0
     with pytest.raises(FileNotFoundError):
         C.restore_checkpoint(tmp_path / "none", state)
+
+
+def test_sharded_save_outside_its_mesh_raises(tmp_path):
+    """A sharded state saved with no ambient mesh would have every rank
+    write its own shards as the logical arrays into one directory: it
+    raises, as ``reshard_state`` does, and writes nothing."""
+    from repro_torch.parallel import sharding as TS
+    from repro_torch.train import train_step as TT
+
+    view = TS.MeshView((2, 1), ("data", "model"), (1, 0))
+    with TS.use_mesh(view):
+        shard = TT.shard_state(_loop().init_or_restore()[0])
+    with pytest.raises(ValueError, match="its own mesh"):
+        C.save_checkpoint(tmp_path, shard, 1)
+    assert not tmp_path.exists() or not any(tmp_path.iterdir())
 
 
 def test_resume_is_deterministic(tmp_path):

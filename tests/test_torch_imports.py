@@ -33,5 +33,10 @@ def test_port_imports_no_jax_and_no_repro(path):
 
 def test_the_check_sees_the_whole_port():
     assert len(FILES) > 20 and REPO / "chip_smoke.py" in FILES
+    port = REPO / "src" / "repro_torch"
+    for mod in ("parallel/sharding.py", "parallel/pipeline.py",
+                "train/train_step.py", "train/elastic.py",
+                "train/checkpoint.py", "optim/compress.py"):
+        assert port / mod in FILES, mod
     # the detector itself: the parity tests do import the JAX package
     assert "repro.models" in set(_imported(REPO / "tests" / "test_torch_model.py"))

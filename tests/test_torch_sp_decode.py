@@ -70,7 +70,7 @@ def test_sp_flash_decode_matches_jax_local(jx, rules, window):
         case = {**case, **{n: case[n][:1] for n in ("q", "k", "v")}}
         want = want[:1]
     got = run_ranks("_torch_tp_ranks:sp_decode_rank", 4,
-                    (case, rules, (2, 2), ("data", "model")))
+                    (case, rules, (2, 2), ("data", "model")), device="cpu")
     for out, (b0, b1) in got:
         np.testing.assert_allclose(out, want[b0:b1], **TOL)
     # every batch row was computed by some rank
@@ -123,5 +123,5 @@ def test_lockstep_decode_on_a_sequence_mesh(jx):
     tokens = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 4))
     want = R.lockstep_rank("qwen2-1.5b", tree, 0, tokens, 4)
     for got in run_ranks("_torch_tp_ranks:lockstep_rank", 2,
-                         ("qwen2-1.5b", tree, 2, tokens, 4)):
+                         ("qwen2-1.5b", tree, 2, tokens, 4), device="cpu"):
         np.testing.assert_allclose(got, want, **TOL)

@@ -79,7 +79,7 @@ def test_mesh_engine_programs_are_proved(ragged):
     from repro_torch.launch.ranks import run_ranks
 
     for progs in run_ranks("_torch_tp_ranks:contract_rank", 2,
-                           ("qwen1.5-4b", 2, ragged)):
+                           ("qwen1.5-4b", 2, ragged), device="cpu"):
         assert [p[0] for p in progs] == (
             ["ragged_step", "rollback", "page_gather", "page_insert"]
             if ragged else

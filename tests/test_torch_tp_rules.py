@@ -15,8 +15,9 @@ JAX package, on the CPU.
 - ``launch.mesh.make_mesh`` and ``launch.ranks.run_ranks``: a gloo mesh
   from an ``init_method`` in this process (a world of one) and over the
   launcher's group on 4 ranks; a world size that is not the mesh's raises; a
-  ``cuda`` mesh raises where there is no card; a failing rank raises with
-  its output.  The engine refuses a mesh of another device type.
+  ``cuda`` mesh raises where there is no card, and so does ``run_ranks``
+  with no device named (it defaults to the card); a failing rank raises
+  with its output.  The engine refuses a mesh of another device type.
 """
 import types
 
@@ -265,7 +266,8 @@ def test_mesh_over_the_launchers_group():
     """On 4 launched ranks ``make_mesh`` builds a (2, 2) mesh over the
     running group: coordinates, sizes, a gather over 'model' and a sum
     over both axes (a built group)."""
-    got = run_ranks("_torch_tp_ranks:mesh_rank", 4, ((2, 2), ("data", "model")))
+    got = run_ranks("_torch_tp_ranks:mesh_rank", 4, ((2, 2), ("data", "model")),
+                    device="cpu")
     assert [g["rank"] for g in got] == [0, 1, 2, 3]
     assert [g["coord"] for g in got] == [[0, 0], [0, 1], [1, 0], [1, 1]]
     assert all(g["sizes"] == {"data": 2, "model": 2} for g in got)
@@ -276,7 +278,8 @@ def test_mesh_over_the_launchers_group():
 
 def test_mesh_size_must_be_the_world():
     with pytest.raises(RankFailure, match="needs 3 ranks, the job has 2"):
-        run_ranks("_torch_tp_ranks:mesh_rank", 2, ((3,), ("model",)))
+        run_ranks("_torch_tp_ranks:mesh_rank", 2, ((3,), ("model",)),
+                  device="cpu")
 
 
 def test_cuda_mesh_needs_a_card_per_rank(monkeypatch):
@@ -292,12 +295,26 @@ def test_cuda_mesh_needs_a_card_per_rank(monkeypatch):
         make_mesh((2,), ("model",))
 
 
+def test_run_ranks_defaults_to_the_card(monkeypatch):
+    """With no device named, ``run_ranks`` asks for the card (NCCL, one
+    card a rank) and raises before any rank starts where there are fewer
+    cards than ranks, naming the device; nothing drops to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"device 'cuda' needs one CUDA "
+                       r"device per rank: 2 ranks, 0 devices"):
+        run_ranks("_torch_tp_ranks:mesh_rank", 2, ((2,), ("model",)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 ranks, 1 devices"):
+        run_ranks("_torch_tp_ranks:mesh_rank", 2, ((2,), ("model",)))
+
+
 def test_a_failing_rank_raises_with_its_output():
     """Rank 1 raises; rank 0, waiting for it at the exit barrier, is stopped
     or fails on the lost peer, whichever comes first."""
     with pytest.raises(RankFailure, match=r"ranks \[(0, )?1\] failed(.|\n)*"
                        r"rank 1 says no"):
-        run_ranks("_torch_tp_ranks:fail_on_rank", 2, (1,))
+        run_ranks("_torch_tp_ranks:fail_on_rank", 2, (1,), device="cpu")
 
 
 def test_engine_refuses_a_mesh_of_another_device():
