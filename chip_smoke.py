@@ -284,7 +284,9 @@ Phases (every check asserts; any failure exits non-zero):
 8. The paper's experiment from ``repro_torch.benchmarks``: the Fig. 4/5
    matmul sweep (cuBLAS and the matmul kernel, nproc 1 to 64, N =
    16384/sqrt(nproc), f32) and the 15-row memory-mode table (8192^3 f32),
-   with the matmul kernel's launches counted, all through its float32 routes.
+   with the matmul kernel's launches counted, all through its float32
+   routes; and Fig. 3's pinning rows (``benchmarks/pinning.py``: derived
+   wire times, counted on fake tensors).
 9. The cost model and the serving sweep (``repro_torch.core``,
    ``repro_torch.benchmarks.serve_sweep``): (a) the port's ``H100`` spec
    beside the card's name, power limit and memory and beside phase 4c's
@@ -366,6 +368,25 @@ Phases (every check asserts; any failure exits non-zero):
    ``MeshView`` (shapes on the meta device, no processes) for qwen2-1.5b
    and llama4-maverick FULL at meshes (1, 1), (4, 1), (2, 2), (4, 2) and
    (16, 16), float32 and int8 moments, beside the whole state.  The
+   phase's seconds (at most 40).
+13. The paper's derived sweep on a mesh (``core.sweep.rank_program``,
+   ``lower_cell``, ``run_sweep``; ``core.op_cost``), within one card: (a)
+   each rank's share of every 4-unit cell (``factorizations(4)`` x
+   placements, 2d at nthread 4 only, x memories: 21 cells) at n0
+   ``SWEEP_N0`` (JAX's 98304 cut so the largest share, inner/flat at
+   nproc 1, holds 15.1 GB), on seeded bf16 A and B; the phase does the
+   collective itself (inner: a sum of the ranks' float32 partials, then
+   the cast; the others: each rank's block in place); the assembled C
+   against ``torch.matmul`` of the float32 inputs within ``SWEEP_TOL``
+   (per memory mode); rank 0's share under ``op_cost.OpCounter``: its
+   FLOPs on real CUDA tensors equal ``lower_cell``'s fake-tensor count
+   exactly, its footprint (``max_memory_allocated`` over the share plus
+   its inputs) the counted peak within ``SWEEP_FOOTPRINT_SLACK``; rank
+   0's ms (CUDA events) beside ``score(H100)``'s compute and memory terms
+   and the share of that derived time the card reached, with the card's
+   name and power limit on each line; (b) ``run_sweep()`` at 256 units
+   (fake tensors, priced on ``H100``): its best cell and
+   ``affinity.placement_table()``, each on a line labelled derived.  The
    phase's seconds (at most 40).
 
 The line before the last is a JSON object with each kernel's numbers; the
@@ -540,42 +561,16 @@ def kernel_inputs(pack, q_dtype, kv_dtype, device):
     return (q.to(q_dtype), kp.to(kv_dtype), vp.to(kv_dtype), *index, ks, vs)
 
 
-def kv_reached(kp, ks, ptab, row_lens) -> tuple:
-    """(bytes, block-table entries) of the KV the given block-table rows
-    reach: ``row_lens`` maps a row to its longest visible length; each
-    unique pool page counts once, K and V, with its scale rows for int8."""
-    page = kp.shape[1]
-    pages, entries = set(), 0
-    for b, n_len in row_lens.items():
-        n = -(-n_len // page)
-        entries += n
-        pages.update(np.minimum(ptab[b, :n].cpu().numpy(), kp.shape[0] - 1).tolist())
-    page_bytes = page * kp.shape[2] * kp.shape[3] * kp.element_size()
-    if ks is not None:
-        page_bytes += page * kp.shape[2] * 4
-    return 2 * len(pages) * page_bytes, entries
-
-
 def bound(args) -> tuple:
-    """(ms, "bytes" | "operations"): the least time for this call.  Bytes:
-    each input the result depends on read once — the KV pages the pack's
-    live tokens (lens > 0) reach, their scale rows, those tokens' q rows,
-    ``lens`` for every row and ``slot`` for the live ones, and the
-    block-table entries they use — and the whole output written once (the
-    zero rows of invalid tokens included).  FLOPs 4 * sum(lens) * G * kvH
-    * hd at the peak rate of q's type."""
-    q, kp, vp, ptab, slot, lens, ks, vs = args
-    T, kvH, G, hd = q.shape
-    lens_c, slot_c = lens.cpu().numpy(), slot.cpu().numpy()
-    live = lens_c > 0
-    n_live = int(live.sum())
-    kv_bytes, entries = kv_reached(kp, ks, ptab, {
-        b: int(lens_c[live & (slot_c == b)].max())
-        for b in set(slot_c[live].tolist())})
-    row = kvH * G * hd * q.element_size()
-    nbytes = (kv_bytes + n_live * row + T * row + T * 4 + n_live * 4
-              + entries * 4)
-    return roof(nbytes, 4.0 * float(lens_c.sum()) * G * kvH * hd, q.dtype)
+    """(ms, "bytes" | "operations"): the least time for this call, from
+    the kernel's registered cost (``ragged_paged_flash.cost``: the KV
+    pages the live tokens reach, their q rows, lens, slots and block-table
+    entries read once, the output written once; 4 * sum(lens) * G * kvH *
+    hd FLOPs at the peak rate of q's type)."""
+    from repro_torch.kernels import ragged_paged_flash as rpf
+
+    flops, nbytes = rpf.cost(*args)
+    return roof(nbytes, flops, args[0].dtype)
 
 
 # the instructions each library's SASS must hold: wgmma and TMA tile loads
@@ -646,7 +641,7 @@ def check_kernel(card: str) -> dict:
         plain = cuda_ms(lambda: rpf.ragged_paged_flash_ref(*args[:6]), iters=10)
         b_ms, b_by = bound(args)
         # cold: rotate over pool copies whose reached pages exceed the L2 twice
-        kv_bytes = kv_reached(args[1], None, args[3], {
+        kv_bytes = rpf.kv_reached(args[1], None, args[3], {
             b: int(args[5][args[4] == b].max()) for b in range(args[3].shape[0])
             if bool(((args[4] == b) & (args[5] > 0)).any())})[0]
         pools, n = cold_pools(args[1], args[2], kv_bytes)
@@ -814,19 +809,12 @@ def make_decode_pack(*, B=8, kvH=2, G=6, hd=128, page=16, cache_len=2048,
 
 
 def decode_bound(args) -> tuple:
-    """(ms, "bytes" | "operations") of one decode tick: the KV pages and
-    scale rows the live lens reach, the live slots' q rows, the used
-    block-table entries and every slot's lens read once, the whole output
-    written once; FLOPs 4 * sum(lens) * G * kvH * hd."""
-    q, kp, vp, ptab, lens, ks, vs = args
-    B, kvH, G, hd = q.shape
-    lens_c = lens.cpu().numpy()
-    kv_bytes, entries = kv_reached(kp, ks, ptab, {
-        b: int(lens_c[b]) for b in np.nonzero(lens_c > 0)[0]})
-    row = kvH * G * hd * q.element_size()
-    nbytes = (kv_bytes + int((lens_c > 0).sum()) * row + B * row + B * 4
-              + entries * 4)
-    return roof(nbytes, 4.0 * float(lens_c.sum()) * G * kvH * hd, q.dtype)
+    """(ms, "bytes" | "operations") of one decode tick, from the kernel's
+    registered cost (``paged_flash_decode.cost``)."""
+    from repro_torch.kernels import paged_flash_decode as pfd
+
+    flops, nbytes = pfd.cost(*args)
+    return roof(nbytes, flops, args[0].dtype)
 
 
 def roof(nbytes, flops, dtype) -> tuple:
@@ -905,7 +893,7 @@ def check_decode(card: str) -> dict:
         q, kp, vp, ptab, lens, ks, vs = args
         variant = pfd.kernel_variant(q, kp, vp)
         b_ms, b_by = decode_bound(args)
-        kv_bytes = kv_reached(kp, ks, ptab, {
+        kv_bytes = rpf.kv_reached(kp, ks, ptab, {
             b: int(n) for b, n in enumerate(lens.tolist()) if n > 0})[0]
         pools, n = cold_pools(kp, vp, kv_bytes)
         turn = itertools.count()
@@ -1064,8 +1052,8 @@ def check_rmsnorm(card: str) -> dict:
             plain = cuda_ms(lambda: rn.rmsnorm_ref(x, scale), iters=20)
             lib = cuda_ms(lib_fn, iters=50)
             lib_dev = device_ms(lib_fn, iters=50)
-            nbytes = 2 * x.numel() * x.element_size() + 1536 * 4
-            b_ms, b_by = roof(nbytes, 4.0 * x.numel(), dt)
+            flops, nbytes = rn.cost(x, scale)
+            b_ms, b_by = roof(nbytes, flops, dt)
             share = "not measured" if dev_ms is None else f"{b_ms / dev_ms:.4f}"
             print(f"rmsnorm ({R}, 1536) {dt}, route {route[0]} with {route[1]} "
                   f"threads a row, on {card}: max |err| {err:.3e} (tol {tol}); "
@@ -1113,20 +1101,14 @@ def flash_inputs(BH, BKV, S, hd, dtype, seed=0):
             for shape in ((BH, S, hd), (BKV, S, hd), (BKV, S, hd))]
 
 
-def flash_flops(q, window=None) -> float:
-    """4 * hd FLOPs for each (row, col) pair the mask keeps — 0 <= row - col
-    < window (S without one) — in each of the BH rows."""
-    BH, S, hd = q.shape
-    W = S if window is None else min(window, S)
-    pairs = W * S - W * (W - 1) // 2
-    return 4.0 * hd * pairs * BH
-
-
 def flash_bound(q, k, window=None) -> tuple:
-    """(ms, "bytes" | "operations"): q, k and v read once and the output
-    written once; ``flash_flops`` at the peak rate of the inputs' type."""
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return roof(nbytes, flash_flops(q, window), q.dtype)
+    """(ms, "bytes" | "operations") from the kernel's registered cost
+    (``flash_attention.cost``: q, k and v read once, the output written
+    once; ``flash_attention.flops`` at the peak rate of the inputs' type)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    flops, nbytes = fa.cost(q, k, k, window=window)
+    return roof(nbytes, flops, q.dtype)
 
 
 def ran(counts: dict) -> str:
@@ -1176,7 +1158,7 @@ def check_flash(card: str) -> dict:
                      iters=10, warmup=2)
         print(f"flash_attention vs plain: {name} {tuple(q.shape)} over "
               f"{tuple(k.shape)} {dt} window {window}, variant {variant}, "
-              f"{ms:.4f} ms = {flash_flops(q, window) / ms / 1e9:.1f} "
+              f"{ms:.4f} ms = {fa.flops(q, window) / ms / 1e9:.1f} "
               f"TFLOP/s: max |err| {err:.3e}, "
               f"max row |err| / |ref| {rel:.3e}, median |ref| "
               f"{float(want.float().abs().median()):.3e} (tol {tol})")
@@ -1197,7 +1179,7 @@ def check_flash(card: str) -> dict:
         diff = float((sdpa().reshape(q.shape).float()
                       - fa.flash_attention(q, k, v).float()).abs().max())
         b_ms, b_by = flash_bound(q, k)
-        tflops = flash_flops(q) / ms / 1e9
+        tflops = fa.flops(q) / ms / 1e9
         print(f"flash_attention at the training shape {tuple(q.shape)} {dt}, "
               f"variant {fa.flash_variant(dt, q.shape[-1])}, on {card}: kernel "
               f"{ms:.4f} ms = {tflops:.1f} TFLOP/s (events), device "
@@ -1253,10 +1235,10 @@ def flash_vision_times(card: str) -> dict:
           f"{variant}, on {card}: max |err| {err:.3e}, max row |err| / |ref| "
           f"{rel:.3e} (tol atol 2e-2, row {BF16_ROW_RTOL}); kernel device "
           f"{fmt_ms(dev_ms)} (events {ms:.4f} ms = "
-          f"{flash_flops(q) / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+          f"{fa.flops(q) / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
           f"scaled_dot_product_attention {lib:.4f} ms (device "
           f"{fmt_ms(lib_dev)}), bound {b_ms:.5f} ms ({b_by}, "
-          f"{flash_flops(q) / 1e9:.1f} GFLOP), share of bound "
+          f"{fa.flops(q) / 1e9:.1f} GFLOP), share of bound "
           f"{b_ms / ms:.4f}, kernel / library {ms / lib:.2f}")
     del q, k, v, q4, k4, v4
     torch.cuda.empty_cache()
@@ -1291,7 +1273,7 @@ def flash_gemma_times(card: str) -> dict:
               f"over {tuple(k.shape)} {dt}, variant "
               f"{fa.flash_variant(dt, 256)}, on {card}: kernel device "
               f"{fmt_ms(dev_ms)} (events {ms:.4f} ms = "
-              f"{flash_flops(q) / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} "
+              f"{fa.flops(q) / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} "
               f"ms, scaled_dot_product_attention {lib:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}), share of bound {b_ms / ms:.4f}, "
               f"kernel / library {ms / lib:.2f}")
@@ -3036,10 +3018,12 @@ def paged_route_logits(params, cfg, flashes, *, B, cache_len, page, C, seed):
 
 
 def sweep_phase(card: str) -> int:
-    """Figs. 4/5 (both engines, n0 = 16384 float32, nproc 1 to 64) and the
-    memory-mode table (8192^3 float32) from ``repro_torch.benchmarks``,
-    with the matmul kernel's launches counted from 0.  Every GFLOP/s must
-    be positive and finite; returns the launches."""
+    """Figs. 4/5 (both engines, n0 = 16384 float32, nproc 1 to 64), the
+    memory-mode table (8192^3 float32) and Fig. 3's pinning rows (derived:
+    counted, no device runs) from ``repro_torch.benchmarks``, with the
+    matmul kernel's launches counted from 0.  Every measured GFLOP/s and
+    every derived wire time must be positive and finite; returns the
+    launches."""
     from repro_torch.benchmarks import run as bench
     from repro_torch.kernels import matmul as mm
 
@@ -3051,8 +3035,9 @@ def sweep_phase(card: str) -> int:
     print("name,us_per_call,derived")
     for name, us, derived in rows:
         print(f"{name},{us:.1f},{derived}")
-        gf = float(derived.split("GF/s")[0])
-        assert math.isfinite(gf) and gf > 0, (name, derived)
+        value = us if name.startswith("pinning/") else float(
+            derived.split("GF/s")[0])
+        assert math.isfinite(value) and value > 0, (name, derived)
     assert launches > 0, "the sweep never launched the matmul kernel"
     # float32 throughout: every launch took a float32 FMA route
     assert sum(by_route.get(r, 0) for r in ("fma_async", "fma_scalar")) == launches, \
@@ -4377,6 +4362,154 @@ def state_bytes() -> None:
                           for s, f, i in cells[1:]))
 
 
+# phase 13: JAX's n0 (98304, the total of a 256-chip pod) cut so the
+# largest share, inner/flat at nproc 1 (A and B of N x N/4 in bf16, the
+# float32 accumulator and one pass's float32 product of N x N), holds
+# 15.1 GB, under 40 GB, and the phase (a float32 reference product and
+# every rank's share of 21 cells) stays inside its 40 s: at 49152 it took
+# 37.5 s on an H100
+SWEEP_N0 = 40960
+# each memory mode's tolerance for a cell's assembled C (bf16) against the
+# float32 product of the same bf16 inputs: rtol 2^-8 is the largest
+# relative error of rounding a float32 sum to bf16; atol 2^-12 sqrt(K)
+# (inputs of unit variance) covers float32 sums taken in another order.
+# The passes add a float32 rounding each (k 2^-24 |C|), far inside that:
+# the three modes get the same numbers.
+SWEEP_TOL = {"cache": (2 ** -8, 2 ** -12), "hybrid": (2 ** -8, 2 ** -12),
+             "flat": (2 ** -8, 2 ** -12)}
+# allocator slack over the counted peak of a share: cuBLAS's workspace
+SWEEP_FOOTPRINT_SLACK = 64 * 2 ** 20
+
+
+def sweep_shares(card: str) -> None:
+    """Phase 13(a): each rank's share of every 4-unit cell of the derived
+    sweep (``factorizations(4)`` x placements, 2d at nthread 4 only, x
+    memories: 21 cells) through ``core.sweep.rank_program`` on one card,
+    on seeded bf16 A and B at n0 ``SWEEP_N0``.  The phase does each cell's
+    collective itself: for inner it sums the ranks' float32 partials and
+    casts, for the others it places the ranks' blocks.  The assembled C is
+    held against ``torch.matmul`` of the float32 inputs (``SWEEP_TOL``);
+    rank 0's share runs under ``op_cost.OpCounter``: its FLOPs must equal
+    ``lower_cell``'s fake-tensor count exactly, and its footprint
+    (``max_memory_allocated`` over the share, plus its inputs) the counted
+    peak within ``SWEEP_FOOTPRINT_SLACK``.  Rank 0's device ms (CUDA events
+    around 3 eager calls after one; a graph's private pool would double the
+    largest share's memory) beside ``score(H100)``'s compute and memory
+    terms of the row, and the share of the derived time the card
+    reached."""
+    from repro_torch.core import op_cost
+    from repro_torch.core import sweep as S
+    from repro_torch.parallel.sharding import MeshView, local_slices
+
+    largest = S.lower_cell(S.SweepCell(1, 4, "inner", "flat",
+                                       n0=SWEEP_N0))["peak_bytes"]
+    assert largest < 40e9, largest
+    print(f"phase 13(a): n0 cut from JAX's 98304 (a 256-chip pod's total) to "
+          f"{SWEEP_N0}: the largest share (inner/flat, nproc 1: A and B of "
+          f"N x N/4, the float32 accumulator and one pass's product of N x "
+          f"N) counts {largest / 1e9:.2f} GB")
+    n_cells = 0
+    for p, t in S.factorizations(4):
+        N = S.SweepCell(p, t, n0=SWEEP_N0).n
+        shape = (p, N, N)
+        g = torch.Generator("cuda").manual_seed(13)
+        a = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        b = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        want = torch.matmul(a.float(), b.float())
+        torch.cuda.empty_cache()
+        for placement in S.PLACEMENTS:
+            if placement == "2d" and t < 4:
+                continue
+            for memory in S.MEMORIES:
+                cell = S.SweepCell(p, t, placement, memory, n0=SWEEP_N0)
+                row = S.score(S.lower_cell(cell))
+                names = (("data", "mrow", "mcol") if placement == "2d"
+                         else ("data", "model"))
+                mesh_shape = (p, 2, 2) if placement == "2d" else (p, t)
+                sa, sb, sc = S._shardings(cell)
+                program = S.rank_program(cell)
+                inner = placement == "inner" and t > 1
+                got = (torch.zeros(shape, device="cuda") if inner else
+                       torch.empty(shape, dtype=torch.bfloat16, device="cuda"))
+                for r in range(p * t):
+                    coord = np.unravel_index(r, mesh_shape)
+                    view = MeshView(mesh_shape, names, coord)
+                    # the rank's own copies (a slice that is already
+                    # contiguous would share the whole A's storage)
+                    a_l = a[local_slices(sa, shape, view)].clone()
+                    b_l = b[local_slices(sb, shape, view)].clone()
+                    if r == 0:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        base = torch.cuda.memory_allocated()
+                        with op_cost.OpCounter() as counter:
+                            c = program(a_l, b_l)
+                        torch.cuda.synchronize()
+                        held = (a_l.numel() + b_l.numel()) * a_l.element_size()
+                        footprint = (torch.cuda.max_memory_allocated() - base
+                                     + held)
+                        counted = counter.analyze()
+                    else:
+                        c = program(a_l, b_l)
+                    if inner:  # the all-reduce over 'model'
+                        got[local_slices(sc, shape, view)] += c
+                    else:
+                        got[local_slices(sc, shape, view)] = c
+                    del c, a_l, b_l
+                if inner:
+                    got = got.to(torch.bfloat16)
+                rtol, atol = SWEEP_TOL[memory]
+                torch.testing.assert_close(got.float(), want, rtol=rtol,
+                                           atol=atol * math.sqrt(N))
+                err = float((got.float() - want).abs().max())
+                del got
+                assert counted["flops"] == row["flops_per_device"], (
+                    cell, counted["flops"], row["flops_per_device"])
+                assert counted["peak_bytes"] <= footprint <= (
+                    counted["peak_bytes"] + SWEEP_FOOTPRINT_SLACK), (
+                    cell, footprint, counted["peak_bytes"])
+                coord0 = MeshView(mesh_shape, names, (0,) * len(mesh_shape))
+                a_l = a[local_slices(sa, shape, coord0)].clone()
+                b_l = b[local_slices(sb, shape, coord0)].clone()
+                ms = cuda_ms(lambda: program(a_l, b_l), iters=3, warmup=1)
+                del a_l, b_l
+                derived_s = max(row["compute_s"], row["memory_s"])
+                print(f"sweep cell {p}x{t} {placement}/{memory} N {N} on "
+                      f"{card}: assembled C within tol (max |err| {err:.3g}); "
+                      f"rank 0's share {ms:.3f} ms (events), counted FLOPs "
+                      f"{counted['flops']:.6g} == fake count, footprint "
+                      f"{footprint / 1e9:.3f} GB vs counted peak "
+                      f"{counted['peak_bytes'] / 1e9:.3f} GB; derived (H100) "
+                      f"compute {row['compute_s'] * 1e3:.3f} ms, memory "
+                      f"{row['memory_s'] * 1e3:.3f} ms, collective "
+                      f"{row['collective_s'] * 1e3:.3f} ms (not run here); the "
+                      f"card reached {derived_s * 1e3 / ms:.3f} of the derived "
+                      f"compute/memory time", flush=True)
+                n_cells += 1
+        del a, b, want
+        torch.cuda.empty_cache()
+    assert n_cells == 21, n_cells
+
+
+def sweep_derived(card: str) -> None:
+    """Phase 13(b): the derived 256-unit sweep (``run_sweep()``, counted
+    on fake tensors, priced on ``H100``): its best cell and
+    ``placement_table()``, each on one line, labelled derived."""
+    from repro_torch.core import affinity
+    from repro_torch.core.sweep import run_sweep
+
+    t0 = time.perf_counter()
+    rows = run_sweep()
+    best = max(rows, key=lambda r: r["peak_fraction"])
+    print(f"derived, not measured: run_sweep(256) best of {len(rows)} cells "
+          f"{best['placement']}-{best['memory']} @ {best['nproc']}x"
+          f"{best['nthread']} N {best['N']}: {best['peak_fraction']:.1%} of "
+          f"the H100's practical peak, {best['dominant']}-bound "
+          f"({time.perf_counter() - t0:.1f} s to count on the host of {card})")
+    print(f"derived, not measured: placement_table() over 8-GPU NVLink "
+          f"domains: {json.dumps(affinity.placement_table())}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4532,6 +4665,11 @@ def main() -> int:
     state_bytes()
     print(f"phase 12: {time.perf_counter() - t12:.1f} s (limit 40)")
     phase_done("phase 12")
+    t13 = time.perf_counter()
+    sweep_shares(card)
+    sweep_derived(card)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s (limit 40) on {card}")
+    phase_done("phase 13")
 
     t = kres["timings"]["mixed"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

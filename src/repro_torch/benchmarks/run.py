@@ -4,6 +4,8 @@ the counterparts of the root ``benchmarks/`` modules of the same names:
   fig4_engine_sweep  — Matlab sweep  = cuBLAS engine, Nproc sweep at const mem
   fig5_engine_sweep  — Octave sweep  = the CUDA matmul kernel, same protocol
   memory_modes       — 15 MCDRAM/NUMA configs = tiling x accumulation grid
+  pinning            — Fig. 3's taskset = rank order over NVLink domains
+                       (derived: counted, no device runs)
 
 Prints ``name,us_per_call,derived`` CSV, measured on the card:
 
@@ -12,16 +14,14 @@ Prints ``name,us_per_call,derived`` CSV, measured on the card:
 
 ``--device cpu --small`` is the CPU rehearsal at tiny sizes (the kernels'
 plain versions; its times say nothing of the card).  There is no fallback:
-without a card and without ``--device cpu`` the harness raises.  The
-``pinning`` module (Fig. 3's taskset) waits with ``core/affinity.py``
-(ROADMAP.md, Queue 1).
+without a card and without ``--device cpu`` the harness raises.
 """
 import argparse
 
 from repro_torch.benchmarks import (fig4_engine_sweep, fig5_engine_sweep,
-                                    memory_modes)
+                                    memory_modes, pinning)
 
-MODULES = (fig4_engine_sweep, fig5_engine_sweep, memory_modes)
+MODULES = (fig4_engine_sweep, fig5_engine_sweep, memory_modes, pinning)
 
 
 def main(argv=None) -> int:

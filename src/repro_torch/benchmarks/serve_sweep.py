@@ -10,9 +10,9 @@ random parameters from ``models.model.init_params`` on ``--device``
 tensor-parallel scenario (``--sharded``, ``--sharded-only``) runs each
 device count as that many rank processes (``launch.ranks``), one card
 each on ``cuda`` (gloo processes on ``cpu``); it reports what JAX's
-reports but the roofline projection (``projected_tokens_per_s``,
-``projected_speedup``), which JAX reads from its HLO cost walk
-(``core/hlo_cost.py``, not ported: ROADMAP.md, Queue 1 item 3).
+reports, the roofline projection (``projected_tokens_per_s``,
+``projected_speedup``) counted by ``core/op_cost.py`` over one ragged step
+where JAX walks the step's HLO (``core/hlo_cost.py``).
 
 The paper sweeps (Nproc × Nthread) at constant memory and shows that one
 set of system settings keeps every factorization near peak.  The serving
@@ -113,7 +113,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.core.roofline import mixed_bound
+from repro_torch.core import op_cost
+from repro_torch.core.roofline import H100, mixed_bound
 from repro_torch.models import model as M
 from repro_torch.serve.chaos import FaultInjector
 from repro_torch.serve.engine import ServeEngine
@@ -957,8 +958,22 @@ def _sharded_rank(n_dev: int, arch: str, batch: int, cache_len: int,
     results = eng.run()
     dt = time.perf_counter() - t0
     n_tok = sum(len(results[u]) for u in uids)
+    # this rank's cost of one ragged step on JAX's all-zero pack, counted
+    # over the captured step's eager twin; projected throughput = decode
+    # tokens per tick over the step's roofline time on an H100
+    T, B = eng.budget, eng.B
+    pack = [np.zeros(T, np.int32)] * 4 + [np.zeros(T, bool),
+                                          np.zeros(B, np.int32)]
+    with op_cost.OpCounter() as counter:
+        eng._ragged_step.run_eager(*pack)
+    walked = counter.analyze()
+    tick_s = max(walked["flops"] / H100.peak_flops,
+                 walked["traffic_bytes"] / H100.hbm_bw)
     return {"n_devices": eng.stats["n_devices"],
             "measured_tokens_per_s": n_tok / dt,
+            "per_device_flops": walked["flops"],
+            "per_device_bytes": walked["traffic_bytes"],
+            "projected_tokens_per_s": B / tick_s,
             "kv_shards": eng.stats["kv_shards"],
             "kv_pool_bytes": eng.stats["kv_pool_bytes"],
             "kv_pool_bytes_per_device": eng.stats["kv_pool_bytes_per_device"],
@@ -977,9 +992,10 @@ def sharded_serve_scenario(arch: str = "qwen1.5-4b", device_counts=(1, 2, 4),
     serves the same traffic, and rank 0's report stands for the count.
     ``token_identical`` checks the engine's contract: identical transcripts
     at every device count, on every rank.  ``measured_speedup`` is wall
-    tokens/s at the largest count over the first.  JAX's
-    ``projected_tokens_per_s``/``projected_speedup`` come from its HLO cost
-    walk (``core/hlo_cost.py``), which is not ported, so they are absent.
+    tokens/s at the largest count over the first; ``projected_speedup`` the
+    same ratio of ``projected_tokens_per_s``, rank 0's ragged step counted
+    by ``core/op_cost.py`` and priced on an H100, as JAX prices its
+    HLO-walked step.
     qwen1.5-4b smoke is the default arch (its kvH = 4 shards 4 ways).
     Raises on ``cuda`` with fewer cards than the largest count."""
     from repro_torch.launch.ranks import run_ranks
@@ -1007,6 +1023,8 @@ def sharded_serve_scenario(arch: str = "qwen1.5-4b", device_counts=(1, 2, 4),
         "per_device_count": {str(n): {k: v for k, v in r.items()
                                       if k != "transcript"}
                              for n, r in per.items()},
+        "projected_speedup": (top["projected_tokens_per_s"]
+                              / base["projected_tokens_per_s"]),
         "measured_speedup": (top["measured_tokens_per_s"]
                              / base["measured_tokens_per_s"]),
         "token_identical": bool(identical),
@@ -1019,9 +1037,14 @@ def _sharded_rows(sharded):
         rows.append((
             f"serve/{sharded['arch']}/sharded/n_devices={n}",
             r["measured_tokens_per_s"],
+            f"projected_tokens_per_s={r['projected_tokens_per_s']:.1f},"
             f"kv_shards={r['kv_shards']},"
-            f"kv_pool_bytes_per_device={r['kv_pool_bytes_per_device']},"
-            f"projected=not-ported"))
+            f"kv_pool_bytes_per_device={r['kv_pool_bytes_per_device']}"))
+    rows.append((
+        f"serve/{sharded['arch']}/sharded/projected_speedup"
+        f"/{max(sharded['device_counts'])}x-devices",
+        sharded["projected_speedup"],
+        f"x-roofline-projected,token_identical={sharded['token_identical']}"))
     rows.append((
         f"serve/{sharded['arch']}/sharded/measured_speedup"
         f"/{max(sharded['device_counts'])}x-devices",

@@ -1,0 +1,255 @@
+"""Per-rank cost of a PyTorch program, counted from the operations it
+dispatches.
+
+Counterpart of ``repro.core.hlo_cost``.  JAX walks the compiled, partitioned
+HLO text of one device's program; the port runs one process per rank and
+writes each rank's program out, so it counts what that program dispatches,
+with a ``TorchDispatchMode`` (``OpCounter``), and ``analyze`` returns JAX's
+keys:
+
+  - ``flops``: 2 * |result| * K for every matmul-class op (``mm``, ``bmm``,
+    ``addmm``, ``baddbmm``, their ``.dtype`` forms, ``convolution``; the
+    plain attention's products arrive as ``bmm``), as JAX's ``_dot_flops``;
+    counted from shapes.
+  - ``collective_bytes`` and ``coll_<type>``: JAX's convention, the bytes of
+    each collective's RESULT: the gathered tensor of an all-gather, the
+    tensor of an all-reduce, the shard of a reduce-scatter, the output of an
+    all-to-all (``c10d`` and ``_c10d_functional`` ops alike).
+  - ``traffic_bytes``: result bytes of every op that writes a tensor,
+    collectives included, as JAX's proxy.  Views count nothing, nor do
+    allocations that write nothing (``empty``).  There is no compiler
+    fusing ops here, so this counts more than a fused program would.
+  - ``peak_bytes``: the high-water mark of the bytes of live storages the
+    program touched (arguments, outputs and temporaries), standing for
+    JAX's ``memory_analysis`` sum.
+
+The hand-written kernels are launched through ``ctypes``, which no dispatch
+mode sees: each wrapper calls ``kernel_launched(name, ...)`` where it
+launches, and the cost registered beside the wrapper
+(``register_kernel_cost``: the bytes and FLOPs its roofline bound uses)
+is added.  A launch with no registered cost raises; it is never counted as
+zero.
+
+The counter works on real tensors (under a real process group: gloo or
+NCCL ranks) and on fake ones.  ``fake_group`` starts a fake process group
+of any size in this one process, so a 256- or 512-rank program is counted
+without a card and without data (``torch._subclasses.fake_tensor``).
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Callable, Dict, Iterator, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes,
+                                          _get_current_dispatch_mode_stack)
+from torch.utils._pytree import tree_leaves
+
+# collective op -> (JAX's type, where its result is: an argument index, or
+# None for the op's return value)
+COLLECTIVES: Dict[str, Tuple[str, object]] = {
+    "c10d::allreduce_": ("all-reduce", 0),
+    "c10d::allreduce_coalesced_": ("all-reduce", 0),
+    "c10d::allgather_": ("all-gather", 0),
+    "c10d::_allgather_base_": ("all-gather", 0),
+    "c10d::allgather_coalesced_": ("all-gather", 0),
+    "c10d::allgather_into_tensor_coalesced_": ("all-gather", 0),
+    "c10d::reduce_scatter_": ("reduce-scatter", 0),
+    "c10d::_reduce_scatter_base_": ("reduce-scatter", 0),
+    "c10d::reduce_scatter_tensor_coalesced_": ("reduce-scatter", 0),
+    "c10d::alltoall_": ("all-to-all", 0),
+    "c10d::alltoall_base_": ("all-to-all", 0),
+    "c10d::broadcast_": ("broadcast", 0),
+    "c10d::send": ("collective-permute", 0),
+    "c10d::recv_": ("collective-permute", 0),
+    "_c10d_functional::all_reduce": ("all-reduce", None),
+    "_c10d_functional::all_reduce_coalesced": ("all-reduce", None),
+    "_c10d_functional::all_gather_into_tensor": ("all-gather", None),
+    "_c10d_functional::all_gather_into_tensor_coalesced": ("all-gather", None),
+    "_c10d_functional::reduce_scatter_tensor": ("reduce-scatter", None),
+    "_c10d_functional::reduce_scatter_tensor_coalesced": ("reduce-scatter", None),
+    "_c10d_functional::all_to_all_single": ("all-to-all", None),
+    "_c10d_functional::broadcast": ("broadcast", None),
+}
+
+# ops whose result aliases an input (``OpOverload.is_view`` catches the
+# rest) and allocations that write nothing: no traffic
+VIEWS = frozenset({
+    "aten::view", "aten::_unsafe_view", "aten::expand", "aten::permute",
+    "aten::transpose", "aten::slice", "aten::select", "aten::as_strided",
+    "aten::alias", "aten::unsqueeze", "aten::squeeze", "aten::t",
+    "aten::detach", "aten::split", "aten::split_with_sizes", "aten::chunk",
+    "aten::unbind", "aten::narrow", "aten::_reshape_alias", "aten::lift_fresh",
+    "_c10d_functional::wait_tensor",
+})
+ALLOCATIONS = frozenset({
+    "aten::empty", "aten::empty_strided", "aten::empty_like",
+    "aten::new_empty", "aten::new_empty_strided",
+})
+
+
+def _k(t: torch.Tensor) -> int:
+    return int(t.shape[-1])
+
+
+def _conv_k(args) -> int:
+    """Contraction length of a convolution: input channels a group times
+    the kernel's extent (the weight's dims past the first two; a
+    transposed convolution's weight is (in, out / groups, ...))."""
+    x, w = args[0], args[1]
+    transposed = bool(args[6]) if len(args) > 6 else False
+    groups = int(args[8]) if len(args) > 8 else 1
+    cin = x.shape[1] // groups if transposed else w.shape[1]
+    return int(cin) * math.prod(int(d) for d in w.shape[2:])
+
+
+# matmul-class op -> f(args, result) -> FLOPs: 2 |result| K, K from the
+# first matrix operand (JAX's lhs contracting dims)
+MATMULS: Dict[str, Callable] = {
+    "aten::mm": lambda a, r: 2.0 * r.numel() * _k(a[0]),
+    "aten::bmm": lambda a, r: 2.0 * r.numel() * _k(a[0]),
+    "aten::addmm": lambda a, r: 2.0 * r.numel() * _k(a[1]),
+    "aten::baddbmm": lambda a, r: 2.0 * r.numel() * _k(a[1]),
+    "aten::addbmm": lambda a, r: 2.0 * r.numel() * _k(a[1]) * a[1].shape[0],
+    "aten::mv": lambda a, r: 2.0 * r.numel() * _k(a[0]),
+    "aten::addmv": lambda a, r: 2.0 * r.numel() * _k(a[1]),
+    "aten::dot": lambda a, r: 2.0 * _k(a[0]),
+    "aten::convolution": lambda a, r: 2.0 * r.numel() * _conv_k(a),
+}
+
+# kernel name -> f(*args, **kwargs) -> (FLOPs, bytes) of one wrapper call
+# that launched; filled by the kernel modules beside their wrappers
+KERNEL_COSTS: Dict[str, Callable] = {}
+
+
+class UnregisteredKernel(RuntimeError):
+    """A counted program launched a kernel that has no registered cost."""
+
+
+def register_kernel_cost(name: str, cost: Callable) -> Callable:
+    """Register ``cost(*args, **kwargs) -> (flops, bytes)`` for the kernel
+    wrapper ``name``; returns ``cost``."""
+    KERNEL_COSTS[name] = cost
+    return cost
+
+
+def kernel_launched(name: str, *args, **kwargs) -> None:
+    """Called by a kernel wrapper where it launches its kernel: adds the
+    kernel's registered cost to every active ``OpCounter`` (nothing when
+    none is active).  Raises ``UnregisteredKernel`` if the kernel has no
+    cost."""
+    counters = [m for m in _get_current_dispatch_mode_stack()
+                if isinstance(m, OpCounter)]
+    if not counters:
+        return
+    cost = KERNEL_COSTS.get(name)
+    if cost is None:
+        raise UnregisteredKernel(
+            f"kernel {name!r} launched under an OpCounter but has no "
+            f"registered cost (op_cost.register_kernel_cost)")
+    with _disable_current_modes():  # the cost's own reads are not counted
+        flops, nbytes = cost(*args, **kwargs)
+    for c in counters:
+        c.flops += float(flops)
+        c.traffic_bytes += float(nbytes)
+        c.kernels[name] = c.kernels.get(name, 0) + 1
+
+
+def _tensors(obj) -> Iterator[torch.Tensor]:
+    return (t for t in tree_leaves(obj) if isinstance(t, torch.Tensor))
+
+
+def _nbytes(obj) -> float:
+    return float(sum(t.numel() * t.element_size() for t in _tensors(obj)))
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the FLOPs, collective bytes, traffic bytes and peak live bytes
+    of what runs under it (``with OpCounter() as c: ...; c.analyze()``).
+    Enter it inside a ``FakeTensorMode`` to count a program on fake
+    tensors."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0.0
+        self.traffic_bytes = 0.0
+        self.collective_bytes = 0.0
+        self.collective_by_type: Dict[str, float] = {}
+        self.kernels: Dict[str, int] = {}
+        self.peak_bytes = 0.0
+        self._live: Dict[int, Tuple[StorageWeakRef, int]] = {}
+
+    def _track(self, tensors) -> None:
+        for t in tensors:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key not in self._live:
+                self._live[key] = (StorageWeakRef(st), st.nbytes())
+        for key in [k for k, (ref, _) in self._live.items() if ref.expired()]:
+            del self._live[key]
+        self.peak_bytes = max(self.peak_bytes, float(
+            sum(n for _, n in self._live.values())))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func._schema.name
+        self._track(list(_tensors((args, kwargs))) + list(_tensors(out)))
+        coll = COLLECTIVES.get(name)
+        if coll is not None:
+            kind, where = coll
+            nbytes = _nbytes(out if where is None else args[where])
+            self.collective_bytes += nbytes
+            self.traffic_bytes += nbytes
+            self.collective_by_type[kind] = (
+                self.collective_by_type.get(kind, 0.0) + nbytes)
+            return out
+        if name in VIEWS or name in ALLOCATIONS or func.is_view:
+            return out
+        mm = MATMULS.get(name)
+        if mm is not None:
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            self.flops += mm(args, first)
+        self.traffic_bytes += _nbytes(out)
+        return out
+
+    def analyze(self) -> Dict[str, float]:
+        """JAX's ``hlo_cost.analyze`` keys, and ``peak_bytes``."""
+        return {"flops": self.flops,
+                "collective_bytes": self.collective_bytes,
+                "traffic_bytes": self.traffic_bytes,
+                **{f"coll_{k}": v for k, v in self.collective_by_type.items()},
+                "peak_bytes": self.peak_bytes}
+
+
+def count(fn: Callable, *args, **kwargs) -> Tuple[object, Dict[str, float]]:
+    """Run ``fn(*args, **kwargs)`` under an ``OpCounter``; returns (its
+    result, the counter's ``analyze()``)."""
+    with OpCounter() as c:
+        out = fn(*args, **kwargs)
+    return out, c.analyze()
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int, rank: int = 0):
+    """A fake default process group of ``world_size`` ranks in this one
+    process, this process rank ``rank``: collectives return at once and
+    move nothing, which is all a count needs.  Destroyed on exit, also
+    after an exception.  Refuses to start over a running group (a group
+    left behind would be picked up by a later ``make_mesh``)."""
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized: count "
+                           "inside it, without a fake group")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

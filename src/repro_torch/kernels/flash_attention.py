@@ -21,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import op_cost
+
 NEG_INF = -1e30
 
 # kernel launches since the last reset (the caller sets it back to 0, and
@@ -96,6 +98,25 @@ def _check(q, k, v, bq: int, bk: int, window) -> None:
         raise ValueError("q, k and v must be contiguous")
 
 
+def flops(q, window: Optional[int] = None) -> float:
+    """4 * hd FLOPs for each (row, col) pair the mask keeps (0 <= row - col
+    < window, S without one) in each of the BH rows."""
+    BH, S, hd = q.shape
+    W = S if window is None else min(window, S)
+    pairs = W * S - W * (W - 1) // 2
+    return 4.0 * hd * pairs * BH
+
+
+def cost(q, k, v, *, bq: int = 128, bk: int = 128,
+         window: Optional[int] = None) -> tuple:
+    """(FLOPs, bytes) of one call, its roofline bound's: q, k and v read
+    once and the output written once; ``flops`` of the mask."""
+    return flops(q, window), (2 * q.numel() + 2 * k.numel()) * q.element_size()
+
+
+op_cost.register_kernel_cost("flash_attention", cost)
+
+
 def _lib():
     from repro_torch.kernels import build
 
@@ -144,4 +165,5 @@ def flash_attention(q, k, v, *, bq: int = 128, bk: int = 128,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
     launches_by_variant[variant] += 1
+    op_cost.kernel_launched("flash_attention", q, k, v, window=window)
     return out

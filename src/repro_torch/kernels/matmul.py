@@ -34,6 +34,8 @@ import ctypes
 
 import torch
 
+from repro_torch.core import op_cost
+
 # kernel launches since the last reset (the caller sets it back to 0, and
 # every entry of launches_by_route with reset_launches())
 launches = 0
@@ -130,6 +132,18 @@ def policy_bytes(M: int, K: int, N: int, dtype, block, accum: str,
     return nbytes
 
 
+def cost(a, b, *, block=(256, 256, 256), accum: str = "vmem",
+         out_dtype=None) -> tuple:
+    """(FLOPs, bytes) of one call, its roofline bound's: 2 M N K and
+    ``policy_bytes``."""
+    (M, K), N = a.shape, b.shape[1]
+    return 2.0 * M * N * K, policy_bytes(M, K, N, a.dtype, block, accum,
+                                         out_dtype)
+
+
+op_cost.register_kernel_cost("matmul", cost)
+
+
 def _lib():
     from repro_torch.kernels import build
 
@@ -174,4 +188,6 @@ def matmul(a, b, *, block=(256, 256, 256), accum: str = "vmem",
                 raise RuntimeError(f"matmul launch failed: CUDA error {err}")
             launches += 1
             launches_by_route[route] += 1
+    op_cost.kernel_launched("matmul", a, b, block=block, accum=accum,
+                            out_dtype=out_dtype)
     return c.to(out_dtype) if hbm else c

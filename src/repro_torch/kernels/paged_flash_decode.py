@@ -20,8 +20,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from repro_torch.core import op_cost
 from repro_torch.kernels import ragged_paged_flash as _rpf
 
 NEG_INF = -1e30
@@ -150,6 +152,25 @@ def _tickets(device, n: int):
     return t
 
 
+def cost(q, kp, vp, ptab, lens, ks=None, vs=None) -> tuple:
+    """(FLOPs, bytes) of one decode tick, its roofline bound's: the KV
+    pages and scale rows the live lens reach, the live slots' q rows, the
+    used block-table entries and every slot's lens read once, the whole
+    output written once; FLOPs 4 * sum(lens) * G * kvH * hd.  Reads
+    ``lens`` and ``ptab`` on the host."""
+    B, kvH, G, hd = q.shape
+    lens_c = lens.cpu().numpy()
+    kv_bytes, entries = _rpf.kv_reached(kp, ks, ptab, {
+        b: int(lens_c[b]) for b in np.nonzero(lens_c > 0)[0]})
+    row = kvH * G * hd * q.element_size()
+    nbytes = (kv_bytes + int((lens_c > 0).sum()) * row + B * row + B * 4
+              + entries * 4)
+    return 4.0 * float(lens_c.sum()) * G * kvH * hd, nbytes
+
+
+op_cost.register_kernel_cost("paged_flash_decode", cost)
+
+
 def _lib():
     from repro_torch.kernels import build
 
@@ -208,4 +229,5 @@ def paged_flash_decode(q, kp, vp, ptab, lens, ks=None, vs=None):
         raise RuntimeError(f"paged_flash_decode launch failed: CUDA error {err}")
     launches += 1
     launches_by_variant[variant] += 1
+    op_cost.kernel_launched("paged_flash_decode", q, kp, vp, ptab, lens, ks, vs)
     return out

@@ -18,7 +18,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+
+from repro_torch.core import op_cost
 
 NEG_INF = -1e30
 
@@ -138,6 +141,46 @@ def _check(q, kp, vp, ptab, slot, lens, ks, vs):
     check_same_device_contiguous([q, kp, vp, ptab, slot, lens, ks, vs])
 
 
+def kv_reached(kp, ks, ptab, row_lens) -> tuple:
+    """(bytes, block-table entries) of the KV the given block-table rows
+    reach: ``row_lens`` maps a row to its longest visible length; each
+    unique pool page counts once, K and V, with its scale rows for int8."""
+    page = kp.shape[1]
+    pages, entries = set(), 0
+    for b, n_len in row_lens.items():
+        n = -(-n_len // page)
+        entries += n
+        pages.update(np.minimum(ptab[b, :n].cpu().numpy(),
+                                kp.shape[0] - 1).tolist())
+    page_bytes = page * kp.shape[2] * kp.shape[3] * kp.element_size()
+    if ks is not None:
+        page_bytes += page * kp.shape[2] * 4
+    return 2 * len(pages) * page_bytes, entries
+
+
+def cost(q, kp, vp, ptab, slot, lens, ks=None, vs=None) -> tuple:
+    """(FLOPs, bytes) of one call, its roofline bound's.  Bytes: each input
+    the result depends on read once (the KV pages the live tokens, lens >
+    0, reach, their scale rows, those tokens' q rows, ``lens`` for every
+    row and ``slot`` for the live ones, the block-table entries they use)
+    and the whole output written once.  FLOPs 4 * sum(lens) * G * kvH *
+    hd.  Reads ``lens``, ``slot`` and ``ptab`` on the host."""
+    T, kvH, G, hd = q.shape
+    lens_c, slot_c = lens.cpu().numpy(), slot.cpu().numpy()
+    live = lens_c > 0
+    n_live = int(live.sum())
+    kv_bytes, entries = kv_reached(kp, ks, ptab, {
+        b: int(lens_c[live & (slot_c == b)].max())
+        for b in np.unique(slot_c[live]).tolist()})
+    row = kvH * G * hd * q.element_size()
+    nbytes = (kv_bytes + n_live * row + T * row + T * 4 + n_live * 4
+              + entries * 4)
+    return 4.0 * float(lens_c.sum()) * G * kvH * hd, nbytes
+
+
+op_cost.register_kernel_cost("ragged_paged_flash", cost)
+
+
 def _lib():
     from repro_torch.kernels import build
 
@@ -197,4 +240,6 @@ def ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
         raise RuntimeError(f"ragged_paged_flash launch failed: CUDA error {err}")
     launches += 1
     launches_by_variant[variant] += 1
+    op_cost.kernel_launched("ragged_paged_flash", q, kp, vp, ptab, slot, lens,
+                            ks, vs)
     return out

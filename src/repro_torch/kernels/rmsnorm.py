@@ -20,6 +20,8 @@ import ctypes
 
 import torch
 
+from repro_torch.core import op_cost
+
 # kernel launches since the last reset (the caller sets it back to 0, and
 # every entry of launches_by_route with reset_launches())
 launches = 0
@@ -93,6 +95,16 @@ def _lib():
     return fn
 
 
+def cost(x, scale, *, eps: float = 1e-6) -> tuple:
+    """(FLOPs, bytes) of one call, its roofline bound's: x read and the
+    output written once, the scale read once; 4 FLOPs an element."""
+    return (4.0 * x.numel(),
+            2 * x.numel() * x.element_size() + scale.numel() * scale.element_size())
+
+
+op_cost.register_kernel_cost("rmsnorm", cost)
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """x: (..., D) float32/bfloat16; scale: (D,) float32.  Returns x's shape
     and dtype."""
@@ -118,4 +130,5 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
         raise RuntimeError(f"rmsnorm launch failed: CUDA error {err}")
     launches += 1
     launches_by_route[route] += 1
+    op_cost.kernel_launched("rmsnorm", x, scale, eps=eps)
     return out

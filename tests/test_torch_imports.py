@@ -36,7 +36,9 @@ def test_the_check_sees_the_whole_port():
     port = REPO / "src" / "repro_torch"
     for mod in ("parallel/sharding.py", "parallel/pipeline.py",
                 "train/train_step.py", "train/elastic.py",
-                "train/checkpoint.py", "optim/compress.py"):
+                "train/checkpoint.py", "optim/compress.py",
+                "core/affinity.py", "core/op_cost.py", "core/sweep.py",
+                "launch/sweep.py", "launch/mesh.py", "benchmarks/pinning.py"):
         assert port / mod in FILES, mod
     # the detector itself: the parity tests do import the JAX package
     assert "repro.models" in set(_imported(REPO / "tests" / "test_torch_model.py"))
