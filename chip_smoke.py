@@ -367,8 +367,14 @@ Phases (every check asserts; any failure exits non-zero):
    (d) a rank's train-state bytes at rest from ``param_specs`` over
    ``MeshView`` (shapes on the meta device, no processes) for qwen2-1.5b
    and llama4-maverick FULL at meshes (1, 1), (4, 1), (2, 2), (4, 2) and
-   (16, 16), float32 and int8 moments, beside the whole state.  The
-   phase's seconds (at most 40).
+   (16, 16), float32 and int8 moments, beside the whole state; (e) kernel
+   3 on a 'model' rank's query heads under ``heads_tp`` at the training
+   shape (batch 2, sequence 4096, kvH 2, G 6 -> 3 at 'model' 2, hd 128,
+   causal, bf16, ``wgmma``): each rank r of a (1, 2) ``MeshView`` takes
+   the G slice of ``wq``'s spec and its call over the whole k and v
+   equals those heads of the whole call bitwise; device ms of rank 0's
+   share (its q copied outside the timed graph) beside its bound and the
+   whole call's.  The phase's seconds (at most 40; 12(e) printed apart).
 13. The paper's derived sweep on a mesh (``core.sweep.rank_program``,
    ``lower_cell``, ``run_sweep``; ``core.op_cost``), within one card: (a)
    each rank's share of every 4-unit cell (``factorizations(4)`` x
@@ -4196,6 +4202,64 @@ def train_share(card: str) -> dict:
     return dict(share_ms=share_ms, whole_ms=whole_ms, bound_ms=b_ms)
 
 
+def train_heads_share(card: str) -> dict:
+    """Phase 12(e): kernel 3 on each 'model' rank's query heads of the
+    training shape under ``heads_tp`` (the G axis of ``wq``, cut by the
+    rules' spec of the leaf under ``MeshView``) over the whole k and v,
+    against those heads of the whole call, bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import (PARAM_AXES, MeshView,
+                                               local_slices, logical_spec,
+                                               make_rules, sanitize_spec)
+
+    B, S, kvH, G, hd = 2, 4096, 2, 6, 128  # qwen2-1.5b's training shape
+    d, n = 1536, 2
+    g = torch.Generator("cuda").manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+               for shape in ((B, S, kvH, G, hd), (B, S, kvH, hd), (B, S, kvH, hd)))
+
+    def flat(q, k, v):  # the kernel's layout (ops._flash_grouped_local)
+        return (q.movedim(1, 3).contiguous().view(-1, S, hd),
+                k.movedim(1, 2).contiguous().view(-1, S, hd),
+                v.movedim(1, 2).contiguous().view(-1, S, hd))
+
+    fa.reset_launches()
+    whole = ops.flash_attention_grouped(q, k, v)
+    shares = []
+    for r in range(n):
+        view = MeshView((1, n), ("data", "model"), (0, r))
+        wq = (d, kvH, G, hd)
+        spec = sanitize_spec(logical_spec(PARAM_AXES["wq"],
+                                          make_rules(view, heads_tp=True)),
+                             wq, view)
+        heads = local_slices(spec, wq, view)[2]
+        assert heads == slice(r * G // n, (r + 1) * G // n), (spec, heads)
+        qr = q[:, :, :, heads].contiguous()  # the rank's q, as wq's slice gives it
+        share = ops.flash_attention_grouped(qr, k, v)
+        diff = float((share.float() - whole[:, :, :, heads].float()).abs().max())
+        assert torch.equal(share, whole[:, :, :, heads]), (r, diff)
+        shares.append(qr)
+    assert fa.launches_by_variant["wgmma"] == fa.launches == n + 1, \
+        dict(fa.launches_by_variant)
+    wq_, wk, wv = flat(q, k, v)
+    sq, sk, sv = flat(shares[0], k, v)  # copied outside the timed graph
+    whole_ms = graph_ms(lambda: fa.flash_attention(wq_, wk, wv))
+    share_ms = graph_ms(lambda: fa.flash_attention(sq, sk, sv))
+    b_ms, b_by = flash_bound(sq, sk)
+    wb_ms, _ = flash_bound(wq_, wk)
+    print(f"train heads share, flash_attention q {tuple(wq_.shape)} over k/v "
+          f"{tuple(wk.shape)} causal bf16 (wgmma), heads_tp at 'model' {n} "
+          f"(G {G} -> {G // n}), on {card}: each rank's call on its query "
+          f"heads (wq's spec under MeshView) over the whole k and v == those "
+          f"heads of the whole call bitwise (max |diff| {diff:.1e}); rank "
+          f"0's share q {tuple(sq.shape)} device {share_ms:.5f} ms vs whole "
+          f"{whole_ms:.5f} ms (graph replays of the kernel alone; "
+          f"share/whole {share_ms / whole_ms:.3f}); share's bound "
+          f"{b_ms:.5f} ms ({b_by}), whole's {wb_ms:.5f} ms")
+    return dict(share_ms=share_ms, whole_ms=whole_ms, bound_ms=b_ms)
+
+
 def train_arm(cfg, opt, batches, mesh=None) -> dict:
     """``TRAIN_MESH_STEPS`` steps of ``make_train_step`` from seed-0
     weights, without a mesh or sharded on ``mesh``: losses, the state
@@ -4663,6 +4727,9 @@ def main() -> int:
     train_share(card)
     train_mesh(card)
     state_bytes()
+    t12e = time.perf_counter()
+    train_heads_share(card)
+    print(f"phase 12(e): {time.perf_counter() - t12e:.1f} s")
     print(f"phase 12: {time.perf_counter() - t12:.1f} s (limit 40)")
     phase_done("phase 12")
     t13 = time.perf_counter()

@@ -112,7 +112,15 @@ class _FlashGrouped(torch.autograd.Function):
     here hold exactly those rows and the kernel runs on them; where the
     batch does not divide over the batch axes, the rows are not split and
     every rank runs the kernel on the whole batch.  No collective is
-    needed: attention never mixes batch rows."""
+    needed: attention never mixes batch rows.
+
+    Under ``heads_tp`` JAX's "act_heads" rule splits the G query heads of
+    each KV group over 'model', and the step's q holds the rank's G/N of
+    them (``attention.attention_fwd`` projects with its slice of ``wq``)
+    over the whole k and v: the kernel runs on q (B, S, kvH, G/N, hd),
+    each query head against its group's k and v as in the whole call, and
+    again no collective is needed (the out-projection's sum over 'model'
+    comes after).  Where N does not divide G the heads stay whole."""
 
     @staticmethod
     def forward(ctx, q, k, v, window):

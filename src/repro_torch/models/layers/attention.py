@@ -40,6 +40,14 @@ lock-step cache holds ``cap/N`` entries per rank and ``attention_decode
 (sp_decode=True)`` combines the ranks' partial terms
 (``serve.decode_attention.sp_flash_decode``).
 
+Training under ``heads_tp`` (JAX's "act_heads" over 'model'): the train
+step's working copies of ``wq``/``bq`` are the rank's G/N query heads of
+every KV group and of ``wo`` the same rows (``parallel.sharding
+.model_part``).  ``attention_fwd`` projects and attends over those heads
+against the whole k and v, and sums the out-projection's partial outputs
+over 'model'; k and v enter the split region after their projections, so
+``wk``/``wv`` get the whole layer's gradient on every rank.
+
 Windowed layers (``cfg.window``) keep per-slot circular buffers of
 ``min(window, cache_len) + window_extra`` entries in the serving state, and
 a shared circular buffer of ``min(window, max_len)`` entries in the
@@ -57,7 +65,9 @@ import torch
 from repro_torch.configs.base import AttnCfg
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers.embeddings import apply_rope
-from repro_torch.parallel.sharding import gather_heads, head_slice
+from repro_torch.parallel.sharding import (copy_to_model, gather_heads,
+                                           head_slice, model_part,
+                                           reduce_from_model)
 from repro_torch.serve import decode_attention as DA
 
 NEG_INF = -1e30
@@ -207,10 +217,15 @@ def attention_fwd(params, cfg: AttnCfg, x, *, positions=None, enc=None,
     (``kernels.ops.flash_attention_grouped``) only for causal
     self-attention without a window, S == T; otherwise a full softmax when
     ``S <= 2*q_chunk`` or ``S % q_chunk != 0``, else the chunked softmax.
-    Bidirectional layers (``causal=False``: hubert) take the last two."""
+    Bidirectional layers (``causal=False``: hubert) take the last two.
+    Under the 'model' split of the query heads, each route runs on the
+    rank's heads (module docstring)."""
     S = x.shape[1]
-    q = _project_q(params, cfg, x)
+    part = model_part(params["wq"])
+    q = _project_q(params, cfg, x if part is None else copy_to_model(x, part))
     k, v = _project_kv(params, cfg, enc if cfg.cross else x)
+    if part is not None:
+        k, v = copy_to_model(k, part), copy_to_model(v, part)
     T = k.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -227,7 +242,8 @@ def attention_fwd(params, cfg: AttnCfg, x, *, positions=None, enc=None,
     else:
         o = _chunked_attn(q, k, v, positions, k_positions, causal,
                           cfg.window, q_chunk)
-    return _out_proj(params, cfg, o)
+    out = _out_proj(params, cfg, o)
+    return out if part is None else reduce_from_model(out, part)
 
 
 def _paged_masked_attn(q, k, v, kpos, q_pos, window):

@@ -9,25 +9,44 @@ the embedding table is stored in the activation dtype once at load
 (``models.model.init_params``, ``bridge.params_from_numpy``), so the
 ``.to(dtype)`` below is a no-op there; JAX casts the float32 table at every
 use, which gives the same values, and so does the training layout.
+
+Under the train step's 'model' split (JAX's "vocab" and "act_vocab") a
+rank's working copy of ``tok_embed`` is its rows of the vocabulary and of
+``out_head`` its columns (``parallel.sharding.model_part``): the lookup
+masks the ids outside the rank's rows and sums the ranks' rows over
+'model', and the head gives the rank's columns of the logits, tied or
+untied (``models.model._xent`` takes the cross entropy over them).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.layers.common import dense_init
+from repro_torch.parallel.sharding import (copy_to_model, model_part,
+                                           reduce_from_model)
 
 
 def embed_tokens(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["tok_embed"].to(dtype)[tokens]
+    w = params["tok_embed"]
+    part = model_part(w)
+    if part is None:
+        return w.to(dtype)[tokens]
+    rows = w.shape[0]  # the rank's V/N rows: ids outside them look up 0
+    local = tokens - part.coord * rows
+    inside = (local >= 0) & (local < rows)
+    out = w.to(dtype)[torch.where(inside, local, 0)]
+    return reduce_from_model(torch.where(inside[..., None], out, 0), part)
 
 
 def logits_from_hidden(params, h: torch.Tensor, *, tied_embed=None):
-    """(..., D) -> (..., V); tied heads multiply by ``tok_embed.T``."""
-    if tied_embed is not None:
-        w = tied_embed.to(h.dtype).t()
-    else:
-        w = params["out_head"].to(h.dtype)
-    return h @ w
+    """(..., D) -> (..., V); tied heads multiply by ``tok_embed.T``.  Under
+    the 'model' split, (..., V/N): the rank's columns."""
+    w = tied_embed if tied_embed is not None else params["out_head"]
+    part = model_part(w)
+    if part is not None:
+        h = copy_to_model(h, part)
+    w = w.to(h.dtype)
+    return h @ (w.t() if tied_embed is not None else w)
 
 
 def init_frontend(generator, d_in: int, d: int, *, device=None):

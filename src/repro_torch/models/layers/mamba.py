@@ -17,6 +17,16 @@ dt_w, dt_b, A_log, ssm_D, out_proj``); the ones JAX uses in float32
 whatever the activation dtype (``FLOAT32_LEAVES``) stay float32 in the
 serving layout.  State dicts hold one layer; ``init_mamba_state`` stacks
 ``layers`` of them.
+
+Under the train step's 'model' split (JAX's "tensor" entries of these
+leaves) a rank holds d_in/N inner channels (``parallel.sharding
+.model_part`` of ``ssm_D``): its columns of each half of ``in_proj`` (the
+train step cuts them from the whole leaf), its channels of the conv, the
+step sizes, the decay and the skip, and its rows of ``x_proj`` and
+``out_proj``.  The channels run through the conv and the scan on their
+own; ``x_proj`` contracts over them, so dt's low-rank input, B and C are
+summed over 'model' and re-enter the split region; ``out_proj``'s partial
+outputs are summed over 'model'.
 """
 from __future__ import annotations
 
@@ -30,6 +40,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import MambaCfg
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.conv import causal_depthwise_conv, conv_step
+from repro_torch.parallel.sharding import (copy_to_model, model_part,
+                                           reduce_from_model)
 
 # leaves JAX reads in float32: the decay, the step's bias, and the skip
 # (float32 in the decode step)
@@ -78,17 +90,21 @@ def init_mamba(generator, d: int, cfg: MambaCfg, layers: int, *,
 
 
 def _preprocess(params, cfg: MambaCfg, x):
-    """The input projection: (x_in, z), each (B, S, d_in)."""
-    d_in, _ = _dims(x.shape[-1], cfg)
+    """The input projection: (x_in, z), each (B, S, d_in) (d_in/N under
+    the 'model' split: the working copy holds the rank's columns of each
+    half)."""
     xz = x @ params["in_proj"].to(x.dtype)
-    return xz[..., :d_in], xz[..., d_in:]
+    return torch.chunk(xz, 2, dim=-1)
 
 
-def _ssm_inputs(params, cfg: MambaCfg, x_c, dt_rank: int):
+def _ssm_inputs(params, cfg: MambaCfg, x_c, dt_rank: int, part=None):
     """The step sizes dt (float32, softplus) and the input and output
-    matrices B, C (float32) of the conv'd input x_c (B, S, d_in)."""
+    matrices B, C (float32) of the conv'd input x_c (B, S, d_in); under
+    the 'model' split x_proj's partial products are summed first."""
     dt_ = x_c.dtype
     proj = x_c @ params["x_proj"].to(dt_)
+    if part is not None:
+        proj = copy_to_model(reduce_from_model(proj, part), part)
     dt_low = proj[..., :dt_rank]
     Bmat = proj[..., dt_rank:dt_rank + cfg.d_state]
     Cmat = proj[..., dt_rank + cfg.d_state:]
@@ -118,10 +134,14 @@ def mamba_fwd(params, cfg: MambaCfg, x, chunk: int = 64):
     checkpointed while gradients are on."""
     B, S, D = x.shape
     dt_ = x.dtype
-    d_in, dt_rank = _dims(D, cfg)
+    _, dt_rank = _dims(D, cfg)
+    part = model_part(params["ssm_D"])
+    if part is not None:
+        x = copy_to_model(x, part)
     x_in, z = _preprocess(params, cfg, x)
+    d_in = x_in.shape[-1]
     x_c = F.silu(causal_depthwise_conv(x_in, params["conv_w"], params["conv_b"]))
-    dt, Bmat, Cmat = _ssm_inputs(params, cfg, x_c, dt_rank)
+    dt, Bmat, Cmat = _ssm_inputs(params, cfg, x_c, dt_rank, part)
     A = -torch.exp(params["A_log"].float())  # (d_in, N)
     # the scan's inputs in the activation dtype, as JAX keeps them
     dt, Bmat, Cmat = dt.to(dt_), Bmat.to(dt_), Cmat.to(dt_)
@@ -142,7 +162,8 @@ def mamba_fwd(params, cfg: MambaCfg, x, chunk: int = 64):
         ys.append(y)
     y = torch.cat(ys, dim=1)
     y = (y + (x_c * params["ssm_D"].to(dt_)).to(dt_)) * F.silu(z)
-    return y @ params["out_proj"].to(dt_)
+    out = y @ params["out_proj"].to(dt_)
+    return out if part is None else reduce_from_model(out, part)
 
 
 def init_mamba_state(cfg: MambaCfg, d: int, batch: int, dtype, *,

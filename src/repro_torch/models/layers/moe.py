@@ -23,6 +23,14 @@ index, as ``jax.lax.top_k`` does (a stable descending sort, where
 ``torch.topk`` promises no order).  The expert products are plain batched
 matrix products, as JAX's are.  ``lshard`` (sharding only) is dropped;
 under a mesh the auxiliary losses are the global batch's (``_aux_losses``).
+
+Under the train step's 'model' split (JAX's "expert" and "act_expert") a
+rank's expert leaves are its E/N experts (``parallel.sharding
+.model_part``).  Every rank routes every token with the replicated router,
+so the ties, the slot order and the capacity are the whole layer's; it
+then runs only its experts' products, in either form, and the combined
+outputs are summed over 'model'.  The gates enter the split region beside
+the tokens, so the router's gradient is the whole layer's on every rank.
 """
 from __future__ import annotations
 
@@ -35,7 +43,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoECfg
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.mlp import mlp_fwd
-from repro_torch.parallel.sharding import batch_shards, batch_sum
+from repro_torch.parallel.sharding import (batch_shards, batch_sum,
+                                           copy_to_model, model_part,
+                                           reduce_from_model)
 
 # leaves JAX reads in float32 (never cast to the activation dtype)
 FLOAT32_LEAVES = ("router",)
@@ -133,15 +143,26 @@ def slot_positions(idx, num_experts: int):
     return onehot, torch.cumsum(onehot, dim=1) * onehot - 1
 
 
-def _dispatch(params, cfg: MoECfg, x, gates, idx, C: int):
+def _experts_of(params, part):
+    """The experts this rank runs: all of them, or its E/N under the
+    'model' split."""
+    n = params["we_gate"].shape[0]
+    lo = 0 if part is None else part.coord * n
+    return slice(lo, lo + n)
+
+
+def _dispatch(params, cfg: MoECfg, x, gates, idx, C: int, part=None):
     """The dispatch/combine form at capacity ``C`` an expert and batch
-    row: (B, S, D)."""
+    row: (B, S, D); under the 'model' split the rank's experts' share."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
     dt = x.dtype
     onehot, pos = slot_positions(idx, E)
     keep = (pos >= 0) & (pos < C)
     pos = torch.where(keep, pos, C)  # the overflow column: a zero row
+    mine = _experts_of(params, part)
+    onehot, pos = onehot[..., mine], pos[..., mine]
+    E = onehot.shape[-1]
     disp = _one_hot(pos, C, dt) * onehot.to(dt)[..., None]  # (B, S*k, E, C)
     disp = disp.reshape(B, S, k, E, C)
     dispatch = torch.sum(disp, dim=2)  # (B, S, E, C)
@@ -151,17 +172,31 @@ def _dispatch(params, cfg: MoECfg, x, gates, idx, C: int):
     return torch.einsum("becd,bsec->bsd", eo, combine)
 
 
-def _residual(params, cfg: MoECfg, x, y):
+def _residual(params, cfg: MoECfg, x, y, part=None):
+    """y, the experts' output (a rank's partial sum under the 'model'
+    split: summed here), plus the dense residual's."""
+    if part is not None:
+        y = reduce_from_model(y, part)
     if cfg.dense_residual is not None:
         y = y + mlp_fwd(params["dense"], cfg.dense_residual, x)
     return y
 
 
+def _split_inputs(params, x, gates):
+    """(the expert leaves' ``ModelPart`` or None, x, gates), the two
+    entering the split region where there is one."""
+    part = model_part(params["we_gate"])
+    if part is None:
+        return None, x, gates
+    return part, copy_to_model(x, part), copy_to_model(gates, part)
+
+
 def _moe_fwd_dispatch(params, cfg: MoECfg, x) -> Tuple[torch.Tensor, Dict]:
     gates, idx, probs, logits = _route(params, cfg, x)
     aux = _aux_losses(probs, idx, logits, cfg.num_experts)
-    y = _dispatch(params, cfg, x, gates, idx, capacity(cfg, x.shape[1]))
-    return _residual(params, cfg, x, y), aux
+    part, xe, ge = _split_inputs(params, x, gates)
+    y = _dispatch(params, cfg, xe, ge, idx, capacity(cfg, x.shape[1]), part)
+    return _residual(params, cfg, x, y, part), aux
 
 
 def _capturing() -> bool:
@@ -176,28 +211,33 @@ def _moe_fwd_ragged(params, cfg: MoECfg, x) -> Tuple[torch.Tensor, Dict]:
     dt = x.dtype
     gates, idx, probs, logits = _route(params, cfg, x)
     aux = _aux_losses(probs, idx, logits, E)
+    part, xe, ge = _split_inputs(params, x, gates)
     T = B * S
     if _capturing():
         # one row of T tokens: an expert gets at most T slots, none drops
-        y = _dispatch(params, cfg, x.reshape(1, T, D), gates.reshape(1, T, k),
-                      idx.reshape(1, T, k), T).reshape(B, S, D)
-        return _residual(params, cfg, x, y), aux
-    xt = x.reshape(T, D)
+        y = _dispatch(params, cfg, xe.reshape(1, T, D), ge.reshape(1, T, k),
+                      idx.reshape(1, T, k), T, part).reshape(B, S, D)
+        return _residual(params, cfg, x, y, part), aux
+    xt = xe.reshape(T, D)
     flat_idx = idx.reshape(T * k)
-    flat_gate = gates.reshape(T * k).to(dt)
+    flat_gate = ge.reshape(T * k).to(dt)
     order = torch.argsort(flat_idx, stable=True)
     inv = torch.argsort(order, stable=True)
     xs = xt[order // k]  # (T*k, D): each sorted slot's source token
     sizes = torch.bincount(flat_idx, minlength=E).tolist()  # host read
+    mine = _experts_of(params, part)
     outs, start = [], 0
     for e, n in enumerate(sizes):
-        if n:
+        if n and mine.start <= e < mine.stop:
             rows = xs[start:start + n]
-            h = (F.silu(rows @ params["we_gate"][e].to(dt))
-                 * (rows @ params["we_up"][e].to(dt)))
-            outs.append(h @ params["we_down"][e].to(dt))
+            j = e - mine.start
+            h = (F.silu(rows @ params["we_gate"][j].to(dt))
+                 * (rows @ params["we_up"][j].to(dt)))
+            outs.append(h @ params["we_down"][j].to(dt))
+        elif n:  # another rank's expert: its slots add 0 here
+            outs.append(xs.new_zeros((n, D)))
         start += n
     eo = torch.cat(outs) if outs else xs.new_zeros((0, D))
     eo = eo[inv] * flat_gate[:, None]  # back to slot order
     y = torch.sum(eo.reshape(T, k, D), dim=1).reshape(B, S, D)
-    return _residual(params, cfg, x, y), aux
+    return _residual(params, cfg, x, y, part), aux

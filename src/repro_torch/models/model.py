@@ -40,6 +40,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch import resolve_device
@@ -50,7 +51,9 @@ from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers import embeddings as emb
 from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.norms import rmsnorm
-from repro_torch.parallel.sharding import batch_shards, batch_sum
+from repro_torch.parallel.sharding import (batch_shards, batch_sum,
+                                           gather_tensor, model_part,
+                                           reduce_from_model)
 
 MOE_LB_WEIGHT = 0.01
 MOE_Z_WEIGHT = 1e-3
@@ -138,10 +141,18 @@ def init_params(cfg: ModelCfg, *, generator: torch.Generator = None,
                  frontend_proj=front)
 
 
+def _head(params: Model) -> torch.Tensor:
+    """The output head's leaf: ``head.out_head`` where there is one
+    (untied configs, audio), the embedding otherwise."""
+    if params.head is None:
+        return params.embed["tok_embed"]
+    return params.head["out_head"]
+
+
 def _logits(params: Model, cfg: ModelCfg, x: torch.Tensor) -> torch.Tensor:
     """The output head: ``head.out_head`` where there is one (untied
     configs, audio), the embedding's transpose otherwise (JAX
-    ``model.py:78, 138``)."""
+    ``model.py:78, 138``).  Under the 'model' split, the rank's columns."""
     if params.head is None:
         return emb.logits_from_hidden({}, x, tied_embed=params.embed["tok_embed"])
     return emb.logits_from_hidden(params.head, x)
@@ -184,11 +195,10 @@ def _embed_inputs(params: Model, cfg: ModelCfg, batch):
 # Forward / loss (training)
 
 
-def forward(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
-    """batch["tokens"]: (B, S) ints — for the audio frontend
-    batch["feats"]: (B, S, d/2) instead; the vision frontend adds
-    batch["img_feats"]: (B, n_img, d/2) — -> (logits (B, S, V) in the
-    activation dtype, aux dict)."""
+def _local_logits(params: Model, cfg: ModelCfg,
+                  batch) -> Tuple[torch.Tensor, Dict]:
+    """The training forward up to the head: (logits, aux), the logits the
+    rank's vocabulary columns under the 'model' split."""
     check_supported(cfg)
     x, enc = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -200,13 +210,45 @@ def forward(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
     return _logits(params, cfg, x), aux
 
 
-def _xent(logits, labels):
+def forward(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
+    """batch["tokens"]: (B, S) ints — for the audio frontend
+    batch["feats"]: (B, S, d/2) instead; the vision frontend adds
+    batch["img_feats"]: (B, n_img, d/2) — -> (logits (B, S, V) in the
+    activation dtype, aux dict).  Under the 'model' split the ranks'
+    columns are gathered whole, without a gradient (``loss_fn`` takes the
+    cross entropy over the columns instead)."""
+    logits, aux = _local_logits(params, cfg, batch)
+    if model_part(_head(params)) is not None:
+        logits = gather_tensor(logits, (None,) * (logits.ndim - 1) + ("model",))
+    return logits, aux
+
+
+def _xent(logits, labels, part=None):
     """Per-token cross entropy in float32: logsumexp minus the target
     logit.  JAX picks the target with a (B,S,V) one-hot mask (1.2 GB at
-    qwen2-1.5b's vocab and 8192 tokens); ``gather`` gives the same values."""
+    qwen2-1.5b's vocab and 8192 tokens); ``gather`` gives the same values.
+
+    With ``part`` (the head's ``ModelPart``), ``logits`` are the rank's
+    V/N columns and the cross entropy is vocabulary-parallel, JAX's over
+    logits split on "act_vocab": the maximum over the ranks' columns (a
+    constant shift, no gradient), then the sum of exponentials and the
+    target logit (0 on the ranks that do not hold it), summed over 'model'
+    in one all-reduce.  The (B, S, V) logits are never assembled."""
     lf = logits.float()
-    tgt = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    return torch.logsumexp(lf, dim=-1) - tgt  # (B,S)
+    if part is None:
+        tgt = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        return torch.logsumexp(lf, dim=-1) - tgt  # (B,S)
+    cols = lf.shape[-1]
+    with torch.no_grad():
+        m = torch.amax(lf, dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=part.group)
+    local = labels.long() - part.coord * cols
+    inside = (local >= 0) & (local < cols)
+    tgt = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    sums = reduce_from_model(torch.stack(
+        [torch.sum(torch.exp(lf - m[..., None]), dim=-1),
+         torch.where(inside, tgt, 0.0)]), part)
+    return torch.log(sums[0]) + m - sums[1]
 
 
 def loss_fn(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
@@ -220,8 +262,8 @@ def loss_fn(params: Model, cfg: ModelCfg, batch) -> Tuple[torch.Tensor, Dict]:
     numerator and the denominator (the global mask sum, or token count)
     are summed over the batch axes (``sharding.batch_sum``), so a rank's
     gradient is its rows' share of the global loss's."""
-    logits, aux = forward(params, cfg, batch)
-    per_tok = _xent(logits, batch["labels"])
+    logits, aux = _local_logits(params, cfg, batch)
+    per_tok = _xent(logits, batch["labels"], model_part(_head(params)))
     if "loss_mask" in batch:
         mask = batch["loss_mask"].float()
         loss = (batch_sum(torch.sum(per_tok * mask))

@@ -28,6 +28,21 @@ sums gradients over the batch axes before keeping its own slice
 the ranks that split the batch, through which the loss and the MoE
 balance terms are normalized over the global batch.
 
+The 'model' split of training (Megatron-style tensor parallelism): the
+batch is replicated over 'model', so the activations entering a split
+layer are the same on every 'model' rank.  The train step makes each split
+leaf's working copy its 'model' slice and marks it (``model_slices``); the
+layer asks ``model_part`` of its leaf, runs only its slice's products, and
+joins the partial results with explicit collectives over the 'model'
+group: ``copy_to_model`` (the identity forward, an all-reduce of the
+gradient backward) where a split region starts, ``reduce_from_model``
+(``sum_over``: an all-reduce forward, the identity backward) where it
+ends.  Leaves replicated over 'model' then get the same gradient on every
+'model' rank, so ``constrain_like_params`` sums over the batch axes only.
+``MODEL_SPLIT`` names the leaves whose layers split and the logical axis
+each splits over; ``model_split_dims`` reads from a state's specs which of
+them a mesh splits.
+
 Parts of the JAX module with no counterpart here:
 
 - ``shard_map``: the port runs one process per rank, and each rank calls
@@ -647,3 +662,121 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     if entry is None:
         return x
     return sum_over(x, axis_group(current_mesh(), entry))
+
+
+# ---------------------------------------------------------------------------
+# The 'model' split of training
+
+
+# leaf name -> the logical axis over which its layer splits its products
+# over 'model' in training: the FFN's columns and rows, the vocabulary, the
+# experts, the query heads (``heads_tp``) and Mamba's inner channels.
+# xLSTM's "tensor" leaves are not split (their layers gather them whole).
+MAMBA_LEAVES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b",
+                "A_log", "ssm_D", "out_proj")
+MODEL_SPLIT: Dict[str, str] = {
+    "w_gate": "tensor", "w_up": "tensor", "w_down": "tensor",
+    "tok_embed": "vocab", "out_head": "vocab",
+    "we_gate": "expert", "we_up": "expert", "we_down": "expert",
+    "wq": "act_heads", "bq": "act_heads", "wo": "act_heads",
+    **{k: "tensor" for k in MAMBA_LEAVES},
+}
+
+
+def model_split_dims(specs: Mapping[str, tuple], mesh) -> Dict[str, int]:
+    """{parameter name: the dim (counted from the end) that 'model'
+    splits} for every leaf of ``specs`` ({name: sanitized spec}, as
+    ``param_specs`` gives them) whose working copy in the train step is
+    its 'model' slice: a leaf of ``MODEL_SPLIT`` whose spec puts 'model'
+    on its layer's split axis, on a ``mesh`` whose 'model' axis has more
+    than one rank.  The spec decides, not the rules:
+    ``sanitize_spec`` drops 'model' where it does not divide (2 query
+    heads a KV group at 'model' 4).  A Mamba mixer splits as a whole, as
+    its ``ssm_D`` (d_in) does; ``conv_w``/``conv_b`` beside no ``ssm_D``
+    are an mLSTM's, which stay whole."""
+    if axis_sizes(mesh).get("model", 1) == 1:
+        return {}
+    out = {}
+    for name, spec in specs.items():
+        group, _, leaf = name.rpartition(".")
+        axis = MODEL_SPLIT.get(leaf)
+        if axis is None:
+            continue
+        if leaf in MAMBA_LEAVES:
+            d_spec = specs.get(f"{group}.ssm_D" if group else "ssm_D")
+            if d_spec is None or d_spec[-1] != "model":
+                continue
+        axes = PARAM_AXES[leaf]
+        dim = axes.index(axis) - len(axes)
+        if spec[dim] == "model":
+            out[name] = dim
+    return out
+
+
+class ModelPart(NamedTuple):
+    """A split leaf's place along 'model': this rank's coordinate, the
+    axis size N and the 'model' process group."""
+    coord: int
+    size: int
+    group: Any
+
+
+# storage of a marked working copy -> its ModelPart.  Process-wide, not
+# per thread: on a card the backward pass (and the recomputation of a
+# remat'd block in it) runs on autograd's device thread
+_PARTS: Dict[int, ModelPart] = {}
+
+
+@contextlib.contextmanager
+def model_slices(tensors: Sequence[torch.Tensor], mesh=None):
+    """Mark ``tensors`` (working copies) as this rank's 'model' slices of
+    their leaves under ``mesh`` (default: the ambient one) for the code
+    inside: ``model_part`` of any of them, or of a view of one, is then
+    this rank's ``ModelPart``."""
+    mesh = mesh if mesh is not None else current_mesh()
+    keys = [t.untyped_storage().data_ptr() for t in tensors]
+    if keys:
+        part = ModelPart(axis_coordinate(mesh, "model"),
+                         axes_size(mesh, "model"), axis_group(mesh, "model"))
+        _PARTS.update(dict.fromkeys(keys, part))
+    try:
+        yield
+    finally:
+        for k in keys:
+            _PARTS.pop(k, None)
+
+
+def model_part(t: torch.Tensor) -> Optional[ModelPart]:
+    """The ``ModelPart`` of a leaf whose working copy (``t``, or the copy
+    ``t`` views) is this rank's 'model' slice; None where the leaf is
+    whole (always outside the train step: serving never splits)."""
+    if not _PARTS:
+        return None
+    return _PARTS.get(t.untyped_storage().data_ptr())
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; the gradient is summed over the group.  Where a split
+    region starts, each rank's gradient of its input is its own slice's
+    share, and the sum is the whole gradient, the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, part: ModelPart) -> torch.Tensor:
+    """``x`` (the same on every 'model' rank) entering a split region."""
+    return _CopyToModel.apply(x, part.group)
+
+
+def reduce_from_model(x: torch.Tensor, part: ModelPart) -> torch.Tensor:
+    """A split region's partial result summed over 'model' (``sum_over``)."""
+    return sum_over(x, part.group)

@@ -11,21 +11,29 @@ moments (an int8 moment's ``q`` and ``qscale``) and the step — is exactly
 this rank's ``local_slices`` of the leaf laid out by ``train_state_specs``,
 and the state carries those specs under "specs".  A step
 
-1. all-gathers each parameter over its spec's axes into a whole working
-   copy, in the parameter dtype, freed at the end of the step (between
-   steps a rank holds only its shards);
+1. all-gathers each parameter over its spec's axes into a working copy,
+   in the parameter dtype, freed at the end of the step (between steps a
+   rank holds only its shards).  A leaf whose layer splits over 'model'
+   (``parallel.sharding.model_split_dims``: the FFN, the vocabulary, the
+   experts, the query heads under ``heads_tp``, Mamba's inner channels)
+   is gathered over its batch axes only: its working copy is the rank's
+   'model' slice, marked for the layers (``model_slices``), which run
+   only that slice's products and join them over 'model';
 2. runs forward and backward on the rank's rows of the global batch
    (``batch_specs``: the leading dim over the "act_batch" axes, replicated
    over 'model'; with ``microbatches``, microbatch i is the global rows
    [i n, (i + 1) n), each then split); the loss and the MoE balance terms
    are normalized over the global batch (``parallel.sharding.batch_sum``);
 3. sums each gradient over the batch axes and keeps the rank's slice
-   (``constrain_like_params``);
+   (``constrain_like_params``): of a split leaf, the gradient of its
+   'model' slice, whose slice over the batch axes is its stored shard;
 4. updates the shards with AdamW, its clipping norm and int8 row scales
    taken over the mesh.
 
-Ranks that differ only along 'model' hold the same rows and compute the
-same gradients: the 'model' split of the compute is later work.
+What stays whole on every 'model' rank: the norms, the k/v projections
+(and attention itself without ``heads_tp``), the router, the frontends,
+xLSTM's leaves, and the saved residuals (JAX's ``act_res_seq`` sequence
+split has no counterpart yet).
 """
 from __future__ import annotations
 
@@ -39,9 +47,11 @@ from repro_torch.configs.base import ModelCfg
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWCfg, apply_updates, init_opt_state
 from repro_torch.optim.quantized_state import is_quantized
-from repro_torch.parallel.sharding import (axis_rules, constrain_like_params,
+from repro_torch.parallel.sharding import (axis_coordinate, axis_rules,
+                                           axes_size, constrain_like_params,
                                            current_mesh, gather_tensor,
-                                           logical_spec, param_specs,
+                                           logical_spec, model_slices,
+                                           model_split_dims, param_specs,
                                            sanitize_spec, shard_tensor)
 from repro_torch.train.checkpoint import walk_state
 
@@ -120,15 +130,56 @@ def gather_state(state):
 
 
 @contextlib.contextmanager
-def _whole_params(leaves, specs, mesh):
-    """The parameters' data swapped for whole working copies gathered
-    from their shards, and back to the shards on exit (the copies are
-    then freed)."""
+def _working_copies(params, specs, mesh):
+    """The parameters' data swapped for working copies gathered from their
+    shards, and back to the shards on exit (the copies are then freed).
+    Yields ``keep_shards(grads)``: the working copies' gradients -> this
+    rank's shards of their sums over the batch axes
+    (``constrain_like_params``).
+
+    A leaf of ``model_split_dims`` is gathered over its spec without
+    'model': its working copy and gradient are its 'model' slice, and its
+    spec without 'model' cuts the stored shard from it.  Mamba's
+    ``in_proj`` (d, 2 d_in) is the exception: its stored 'model' shard is
+    a block of the x and z halves side by side (at 'model' 2, all of x on
+    rank 0 and all of z on rank 1), where the rank needs its columns of
+    each half.  Its working copy is gathered whole and cut to those
+    columns, and its gradient gathered back over 'model' into the whole
+    leaf's.  The stored layout stays JAX's."""
+    names = [n for n, _ in params.named_parameters()]
+    leaves = [p for _, p in params.named_parameters()]
+    split = model_split_dims(dict(zip(names, specs)), mesh)
     shards = [p.data for p in leaves]
+    n = axes_size(mesh, "model") if split else 1
+    r = axis_coordinate(mesh, "model") if split else 0
+    gspecs, cut = [], []
     try:
-        for p, spec in zip(leaves, specs):
+        for name, p, spec in zip(names, leaves, specs):
+            dim = split.get(name)
+            halves = dim is not None and name.endswith(".in_proj")
+            if dim is not None and not halves:
+                spec = tuple(None if i == len(spec) + dim else e
+                             for i, e in enumerate(spec))
             p.data = gather_tensor(p.data, spec, mesh)
-        yield
+            if halves:  # (.., 2 d_in) -> the rank's (.., [x_r z_r])
+                w = p.data
+                p.data = w.reshape(w.shape[:-1] + (2, n, -1))[..., r, :] \
+                    .flatten(-2).contiguous()
+                cut.append(len(gspecs))
+            gspecs.append(spec)
+
+        def keep_shards(grads):
+            grads = list(grads)
+            for i in cut:  # every rank's (.., [x_r z_r]) -> (.., [x z])
+                g = gather_tensor(grads[i], (None,) * (grads[i].ndim - 1)
+                                  + ("model",), mesh)
+                grads[i] = g.reshape(g.shape[:-1] + (n, 2, -1)).transpose(
+                    -3, -2).flatten(-3)
+            return constrain_like_params(grads, gspecs, mesh)
+
+        with model_slices([p.data for name, p in zip(names, leaves)
+                           if name in split], mesh):
+            yield keep_shards
     finally:
         for p, s in zip(leaves, shards):
             p.data = s
@@ -188,11 +239,11 @@ def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg, lr_fn: Callable,
             grads, loss, mets, _ = grads_of(params, leaves, batch, mesh)
         else:
             specs = list(state["specs"]["params"].values())
-            with _whole_params(leaves, specs, mesh):
+            with _working_copies(params, specs, mesh) as keep_shards:
                 grads, loss, mets, entry = grads_of(params, leaves, batch,
                                                     mesh)
                 with axis_rules({"act_batch": entry}):
-                    grads = constrain_like_params(grads, specs, mesh)
+                    grads = keep_shards(grads)
         lr = lr_fn(state["opt"]["step"])
         _, state["opt"], om = apply_updates(leaves, grads, state["opt"],
                                             opt_cfg, lr, specs=specs,

@@ -7,6 +7,7 @@ test_torch_compress.py, test_torch_pipeline.py, and the four-card
 which must not import JAX: this module imports torch, numpy and the port
 only.  The parents compute the JAX references and pass numpy in.
 """
+import dataclasses
 import time
 
 import numpy as np
@@ -17,11 +18,23 @@ from repro_torch.train.checkpoint import walk_state
 AXES = ("data", "model")
 
 
-def _cfg(arch: str, **kw):
+def with_moe_impl(cfg, impl: str):
+    """``cfg`` (either package's config) with every MoE block's ``impl``
+    set to ``impl``."""
+    def block(b):
+        return dataclasses.replace(b, moe=dataclasses.replace(b.moe, impl=impl)) \
+            if b.moe is not None else b
+    return cfg.replace(stages=tuple(
+        dataclasses.replace(st, pattern=tuple(block(b) for b in st.pattern))
+        for st in cfg.stages))
+
+
+def _cfg(arch: str, moe_impl=None, **kw):
     from repro_torch.configs import get_config
 
-    return get_config(arch, smoke=True).replace(dtype="float32",
-                                                param_dtype="float32", **kw)
+    cfg = get_config(arch, smoke=True).replace(dtype="float32",
+                                               param_dtype="float32", **kw)
+    return cfg if moe_impl is None else with_moe_impl(cfg, moe_impl)
 
 
 def _state(tree, cfg, opt, device="cpu"):
@@ -73,22 +86,63 @@ def assert_states_equal(a, b):
         assert x.shape == y.shape and torch.equal(x, y), key
 
 
+def assert_working_copies(state, whole, mesh, want):
+    """The train step's working copies of the sharded ``state``: a leaf
+    whose last name is in ``want`` (and only those) is split over
+    'model', and its working copy is exactly this rank's 'model' slice of
+    the ``whole`` leaf (of a Mamba ``in_proj``, its columns of each half),
+    marked for the layers (``model_part``); every other leaf's is the
+    whole leaf."""
+    from repro_torch.parallel.sharding import (axis_coordinate, axes_size,
+                                               model_part)
+    from repro_torch.train.train_step import _working_copies
+
+    n, r = axes_size(mesh, "model"), axis_coordinate(mesh, "model")
+    params = state["params"]
+    specs = list(state["specs"]["params"].values())
+    split = set()
+    with _working_copies(params, specs, mesh):
+        for (name, p), full in zip(params.named_parameters(),
+                                   whole["params"].parameters(), strict=True):
+            part = model_part(p.data)
+            if part is None:
+                assert torch.equal(p.data, full), name
+                continue
+            split.add(name.rpartition(".")[2])
+            assert part.coord == r and part.size == n, (name, part)
+            dim = next(d for d in range(-1, -p.ndim - 1, -1)
+                       if p.shape[d] != full.shape[d])
+            assert p.shape[dim] * n == full.shape[dim], (name, p.shape)
+            if name.endswith("in_proj"):
+                full = full.reshape(full.shape[:-1] + (2, n, -1))[..., r, :]
+                want_copy = full.flatten(-2)
+            else:
+                want_copy = full.narrow(dim, r * p.shape[dim], p.shape[dim])
+            assert torch.equal(p.data, want_copy), name
+    assert split == set(want), (sorted(split), sorted(want))
+
+
 def _step_case(case: dict, tree, batch, mesh):
     """One sharded step of ``case`` (arch, opt kwargs, microbatches,
-    config kwargs) on ``mesh``; returns (whole state after it, its loss)."""
+    config kwargs, ``moe_impl``, ``heads_tp``; ``split``, the leaves the
+    'model' split must cut, checked where given) on ``mesh``; returns
+    (whole state after it, its loss)."""
     from repro_torch.optim.adamw import AdamWCfg
     from repro_torch.optim.schedules import constant
     from repro_torch.parallel.sharding import make_rules, use_mesh
     from repro_torch.train.train_step import (gather_state, make_train_step,
                                               shard_state)
 
-    cfg = _cfg(case["arch"], **case.get("cfg", {}))
+    cfg = _cfg(case["arch"], case.get("moe_impl"), **case.get("cfg", {}))
     opt = AdamWCfg(**case.get("opt", {}))
     step = make_train_step(cfg, opt, constant(1e-3),
                            case.get("microbatches", 1))
     b = {k: torch.from_numpy(v) for k, v in batch.items()}
-    with use_mesh(mesh, make_rules(mesh)):
+    with use_mesh(mesh, make_rules(mesh, heads_tp=case.get("heads_tp", False))):
         state = shard_state(_state(tree, cfg, opt))
+        if "split" in case:
+            assert_working_copies(state, _state(tree, cfg, opt), mesh,
+                                  case["split"])
         state, metrics = step(state, b)
         whole = gather_state(state)
         assert_shards_are_slices(state, whole, mesh)
@@ -238,11 +292,13 @@ def pipeline_rank(Ws, xs):
 # four cards
 
 
-def cards_train_rank(shape, layers: int, seq: int, batch: int, steps: int):
+def cards_train_rank(shape, layers: int, seq: int, batch: int, steps: int,
+                     heads_tp: bool = False):
     """qwen2-1.5b at full width cut to ``layers`` layers, float32, on NCCL
     ranks, one card each: ``steps`` steps without a mesh on the rank's own
     card (the one-card reference), then ``steps`` sharded steps at
-    ("data", "model") ``shape`` from the same weights and batches.  Asserts
+    ("data", "model") ``shape`` (rules ``make_rules(mesh, heads_tp=)``)
+    from the same weights and batches.  Asserts
     the first loss within 1e-4 and the gathered parameters and moments
     within rtol 2e-3, atol 2e-4 of the reference (the CPU test's
     tolerances), and each later loss within 1e-6 of its value;
@@ -255,7 +311,7 @@ def cards_train_rank(shape, layers: int, seq: int, batch: int, steps: int):
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import AdamWCfg, init_opt_state
     from repro_torch.optim.schedules import constant
-    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.parallel.sharding import make_rules, use_mesh
     from repro_torch.train.train_step import (gather_state, make_train_step,
                                               shard_state)
 
@@ -296,7 +352,7 @@ def cards_train_rank(shape, layers: int, seq: int, batch: int, steps: int):
            "v": [v.cpu() for v in ref["opt"]["v"]]}
     gc.collect()
     torch.cuda.empty_cache()
-    with use_mesh(mesh):
+    with use_mesh(mesh, make_rules(mesh, heads_tp=heads_tp)):
         state, losses, ms, peak = run(True)
         whole = gather_state(state)
         del state

@@ -458,3 +458,39 @@ def test_cuda_kernel_refuses_head_dim_past_256():
     with pytest.raises(ValueError, match="up to 256"):
         fa.flash_attention(q, k, v)
     assert fa.launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [2, 3])
+def test_cuda_kernel_on_a_model_ranks_heads(dtype, n):
+    """The training kernel under ``heads_tp`` at 'model' n: each rank's
+    call on its G/n query heads (the G slice of ``wq``'s spec under a
+    (1, n) ``MeshView``) over the whole k and v equals those heads of the
+    whole call bitwise (batch 2, sequence 256, kvH 2, G 6, hd 128, causal;
+    bf16 runs the "wgmma" variant, float32 the "simt")."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.parallel.sharding import (PARAM_AXES, MeshView,
+                                               local_slices, logical_spec,
+                                               make_rules, sanitize_spec)
+
+    B, S, kvH, G, hd = 2, 256, 2, 6, 128
+    g = torch.Generator().manual_seed(n)
+    q, k, v = (torch.randn(shape, generator=g).to(getattr(torch, dtype)).cuda()
+               for shape in ((B, S, kvH, G, hd), (B, S, kvH, hd),
+                             (B, S, kvH, hd)))
+    fa.reset_launches()
+    whole = tops.flash_attention_grouped(q, k, v)
+    wq = (64, kvH, G, hd)
+    for r in range(n):
+        view = MeshView((1, n), ("data", "model"), (0, r))
+        spec = sanitize_spec(logical_spec(PARAM_AXES["wq"],
+                                          make_rules(view, heads_tp=True)),
+                             wq, view)
+        heads = local_slices(spec, wq, view)[2]
+        assert heads.stop - heads.start == G // n, heads
+        share = tops.flash_attention_grouped(q[:, :, :, heads].contiguous(), k, v)
+        assert torch.equal(share, whole[:, :, :, heads]), (r, heads)
+    variant = "simt" if dtype == "float32" else "wgmma"
+    assert fa.launches_by_variant[variant] == fa.launches == n + 1

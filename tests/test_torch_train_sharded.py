@@ -18,7 +18,8 @@ mesh:
   bitwise (asserted in the rank).
 
 tests/test_torch_train_sharded_cases.py holds the (2, 2) variants (int8
-moments, microbatches with a loss mask, MoE, ``use_flash``).
+moments, microbatches with a loss mask, MoE, ``use_flash``) and the
+'model' split's cases (``heads_tp``, an untied head, experts, Mamba).
 
 On a machine with four cards, the ``gpu`` test ``test_train_across_cards``
 runs the step on NCCL ranks at full width (JAX is not needed there: this
@@ -62,6 +63,10 @@ def jax_case(case: dict, batch: dict):
 
     cfg = get_config(case["arch"], smoke=True).replace(
         dtype="float32", param_dtype="float32", **case.get("cfg", {}))
+    if "moe_impl" in case:
+        from _torch_train_ranks import with_moe_impl
+
+        cfg = with_moe_impl(cfg, case["moe_impl"])
     opt = AdamWCfg(**case.get("opt", {}))
     state0 = init_train_state(jax.random.PRNGKey(0), cfg, opt)
     tree = jax.tree.map(np.asarray, state0["params"])
@@ -118,7 +123,9 @@ def test_sharded_step_matches_jax_single_device(qwen_case, shape):
 # ---------------------------------------------------------------------------
 # on the card: NCCL ranks, one card each
 
-CARD_MESHES = [(2, 1), (1, 2), (2, 2), (4, 1)]
+# (mesh, heads_tp)
+CARD_MESHES = [((2, 1), False), ((1, 2), False), ((1, 2), True),
+               ((2, 2), False), ((4, 1), False), ((1, 4), False)]
 
 
 @pytest.mark.gpu
@@ -128,10 +135,11 @@ def test_train_across_cards():
     ranks, one card each, against the step without a mesh on the rank's
     own card, at the CPU test's tolerances (asserted in the ranks; the
     second step's loss, ~1e3 at full width, at 1e-6 of its value).
-    Prints ms per step and peak memory per card, measured with this
-    slice's duplicated 'model' compute (ranks along 'model' run the same
-    rows)."""
-    need = max(d * m for d, m in CARD_MESHES)
+    Prints ms per step and peak memory per card beside one card's.
+    'model' ranks split the FFN, the vocabulary and, with ``heads_tp``,
+    the query heads (G 6 -> 3 at 'model' 2; at 'model' 4, which does not
+    divide 6, the heads stay whole)."""
+    need = max(d * m for (d, m), _ in CARD_MESHES)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < need:
         pytest.skip(f"needs {need} CUDA devices, has {have}")
@@ -140,15 +148,15 @@ def test_train_across_cards():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
-    for shape in CARD_MESHES:
+    for shape, heads_tp in CARD_MESHES:
         n = shape[0] * shape[1]
         for r, res in enumerate(run_ranks("_torch_train_ranks:cards_train_rank",
-                                          n, (shape, 4, 1024, 8, 2),
+                                          n, (shape, 4, 1024, 8, 2, heads_tp),
                                           device="cuda", timeout=900)):
-            print(f"train across cards, mesh {shape} rank {r}, qwen2-1.5b "
-                  f"FULL width 4 layers f32, seq 1024, batch 8, on {card} "
-                  f"(the 'model' compute duplicated in this slice): losses "
-                  f"{res['losses']} (one card without a mesh "
+            print(f"train across cards, mesh {shape}"
+                  f"{' heads_tp' if heads_tp else ''} rank {r}, qwen2-1.5b "
+                  f"FULL width 4 layers f32, seq 1024, batch 8, on {card}: "
+                  f"losses {res['losses']} (one card without a mesh "
                   f"{res['ref_losses']}); max |diff| {res['max_diff']}; "
                   f"{res['ms'][0]:.1f} ms a step after the first (one card "
                   f"{res['ref_ms'][0]:.1f}); peak memory "

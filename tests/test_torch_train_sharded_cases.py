@@ -13,6 +13,23 @@ tests/test_torch_train_sharded.py, one rank run for all cases):
   importance) over the global batch, not a mean of per-rank products;
 - ``use_flash``: attention through the flash kernel on each rank's rows
   (JAX's runs it as its own tests do on the CPU).
+
+``test_model_split_matches_jax`` holds the 'model' split of the compute
+(the FFN's columns and rows, the vocabulary, the experts, the query heads
+under ``heads_tp``, Mamba's inner channels) at 'model' 2 and 4, one rank
+run a mesh; in each rank the working copy of every split leaf is its
+'model' slice and exactly the leaves of ``split`` are cut
+(``_torch_train_ranks.assert_working_copies``):
+
+- (1, 2): qwen2-1.5b smoke (tied head) with ``heads_tp``; glm4-9b smoke
+  (untied head) with ``heads_tp`` and a ``loss_mask``; arctic smoke (8
+  experts, top-2, a dense residual) in the dispatch and the dropless
+  form; jamba smoke (Mamba, MoE and attention blocks);
+- (2, 2): qwen2-1.5b with ``heads_tp``, and with ``use_flash`` as well
+  (the flash kernel on a rank's rows and heads);
+- (1, 4): qwen2-1.5b with ``heads_tp``, whose G = 2 query heads a KV
+  group 'model' 4 does not divide: the heads stay whole, the FFN and the
+  vocabulary split.
 """
 import pytest
 
@@ -52,3 +69,70 @@ def test_sharded_step_variants_match_jax():
                 CASES, got, want, strict=True):
             assert_like_jax(loss, state, want_loss, want_state,
                             f"{name} rank {r}")
+
+
+FFN = ("w_gate", "w_up", "w_down")
+HEADS = ("wq", "bq", "wo")
+EXPERTS = ("we_gate", "we_up", "we_down")
+MAMBA = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A_log",
+         "ssm_D", "out_proj")
+QWEN_HEADS_TP = {"arch": "qwen2-1.5b", "heads_tp": True,
+                 "split": FFN + ("tok_embed",) + HEADS}
+ARCTIC = {"arch": "arctic-480b",
+          "split": FFN + ("tok_embed", "out_head") + EXPERTS}
+SPLIT_CASES = {
+    (1, 2): {
+        "qwen_heads_tp": QWEN_HEADS_TP,
+        "untied_mask_heads_tp": {"arch": "glm4-9b", "heads_tp": True,
+                                 "mask": True,
+                                 "split": FFN + ("tok_embed", "out_head")
+                                 + HEADS},
+        "arctic_dispatch": ARCTIC,
+        "arctic_dropless": {**ARCTIC, "moe_impl": "ragged"},
+        "jamba": {"arch": "jamba-1.5-large-398b",
+                  "split": FFN + ("tok_embed", "out_head") + EXPERTS + MAMBA},
+    },
+    (2, 2): {
+        "qwen_heads_tp": QWEN_HEADS_TP,
+        "flash_heads_tp": {**QWEN_HEADS_TP, "cfg": {"use_flash": True}},
+    },
+    (1, 4): {
+        "qwen_heads_tp_undivided": {**QWEN_HEADS_TP,
+                                    "split": FFN + ("tok_embed",)},
+    },
+}
+_JAX = {}  # case name -> (case, batch, tree, loss, state): one JAX step each
+
+
+def _jax_split_case(name: str, case: dict):
+    if name not in _JAX:
+        from repro.configs import get_config
+
+        vocab = get_config(case["arch"], smoke=True).vocab_size
+        batch = make_batch(vocab, seed=len(_JAX) + 11,
+                           mask=case.get("mask", False))
+        jcase = {k: v for k, v in case.items()
+                 if k not in ("mask", "heads_tp", "split")}
+        _JAX[name] = (batch,) + jax_case(jcase, batch)
+    return _JAX[name]
+
+
+@pytest.mark.parametrize("shape", list(SPLIT_CASES),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_model_split_matches_jax(shape):
+    pytest.importorskip("jax")
+    named = SPLIT_CASES[shape]
+    cases, batches, trees, want = [], [], {}, []
+    for name, case in named.items():
+        batch, tree, loss, state = _jax_split_case(name, case)
+        trees[case["arch"]] = tree
+        cases.append({k: v for k, v in case.items() if k != "mask"})
+        batches.append(batch)
+        want.append((loss, state))
+    results = run_ranks("_torch_train_ranks:train_rank", shape[0] * shape[1],
+                        (shape, cases, trees, batches), device="cpu")
+    for r, got in enumerate(results):
+        for name, (loss, state), (want_loss, want_state) in zip(
+                named, got, want, strict=True):
+            assert_like_jax(loss, state, want_loss, want_state,
+                            f"{name} {shape} rank {r}")
