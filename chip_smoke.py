@@ -385,7 +385,7 @@ Phases (every check asserts; any failure exits non-zero):
    the cast; the others: each rank's block in place); the assembled C
    against ``torch.matmul`` of the float32 inputs within ``SWEEP_TOL``
    (per memory mode); rank 0's share under ``op_cost.OpCounter``: its
-   FLOPs on real CUDA tensors equal ``lower_cell``'s fake-tensor count
+   FLOPs on real CUDA tensors equal ``lower_cell``'s count on ``meta``
    exactly, its footprint (``max_memory_allocated`` over the share plus
    its inputs) the counted peak within ``SWEEP_FOOTPRINT_SLACK``; rank
    0's ms (CUDA events) beside ``score(H100)``'s compute and memory terms
@@ -394,6 +394,27 @@ Phases (every check asserts; any failure exits non-zero):
    (fake tensors, priced on ``H100``): its best cell and
    ``affinity.placement_table()``, each on a line labelled derived.  The
    phase's seconds (at most 40).
+14. The dry run (``launch/dryrun.py``), counted on the card's machine
+   (``dryrun_phase``).  Three dry-run cells and two counts start in
+   processes of their own while (c) and (a)'s counted real step run here;
+   (a)'s timed steps follow once those processes have ended.
+   (a) Phase 6's step (qwen2-1.5b FULL, ``use_flash``, seq 4096, batch 2)
+   on a (1, 1) mesh of a fake group, counted as the dry run's row on
+   ``meta`` and over one real step on the card under
+   ``op_cost.OpCounter``: FLOPs equal to relative 1e-9 and 56
+   ``flash_attention`` launches each; cut to ``FAKE_CUDA_LAYERS`` layers,
+   the ``meta`` count equals the count on ``FakeTensor``s on ``cuda``;
+   the counted
+   peak, the allocator's peak and ``memory_model.estimate`` side by side;
+   the median of 3 timed steps against ``roofline_terms``'
+   ``step_time_lower_bound_s`` on the data-sheet H100.  (b)
+   ``python -m repro_torch.launch.dryrun`` on qwen2-1.5b ``train_4k``,
+   ``prefill_32k`` and ``decode_32k`` at the (16, 16) production mesh
+   under ``fake_group(256)``: each cell's counting seconds and its row,
+   labelled derived.  (c) arctic smoke (float32, ``remat="full"``) steps on
+   a 1-rank NCCL mesh; every call of the MoE balance terms recomputed in
+   the backward pass on autograd's device thread sees the forward's mesh
+   and rules.  The phase's seconds (aim: under 60).
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -4454,7 +4475,7 @@ def sweep_shares(card: str) -> None:
     casts, for the others it places the ranks' blocks.  The assembled C is
     held against ``torch.matmul`` of the float32 inputs (``SWEEP_TOL``);
     rank 0's share runs under ``op_cost.OpCounter``: its FLOPs must equal
-    ``lower_cell``'s fake-tensor count exactly, and its footprint
+    ``lower_cell``'s count on ``meta`` exactly, and its footprint
     (``max_memory_allocated`` over the share, plus its inputs) the counted
     peak within ``SWEEP_FOOTPRINT_SLACK``.  Rank 0's device ms (CUDA events
     around 3 eager calls after one; a graph's private pool would double the
@@ -4572,6 +4593,351 @@ def sweep_derived(card: str) -> None:
           f"({time.perf_counter() - t0:.1f} s to count on the host of {card})")
     print(f"derived, not measured: placement_table() over 8-GPU NVLink "
           f"domains: {json.dumps(affinity.placement_table())}")
+
+
+# ---------------------------------------------------------------------------
+# 14. the dry run: rank 0's program counted without data, held to the card
+
+DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")  # qwen2-1.5b, (16, 16)
+PHASE14_LIMIT_S = 60
+REPO = Path(__file__).resolve().parent
+
+
+def phase6_shape():
+    """Phase 6's training step as a dry-run shape: seq 4096, batch 2."""
+    from repro_torch.configs.base import ShapeCfg
+
+    return ShapeCfg("phase6_train", 4096, 2, "train")
+
+
+@contextlib.contextmanager
+def registered_shape(shape):
+    """``shape`` in the port's ``SHAPES_BY_NAME`` for the code inside (the
+    dry run and the roofline look a row's shape up by name)."""
+    from repro_torch.configs import SHAPES_BY_NAME
+
+    SHAPES_BY_NAME[shape.name] = shape
+    try:
+        yield shape
+    finally:
+        del SHAPES_BY_NAME[shape.name]
+
+
+def one_rank_mesh():
+    """A (1, 1) ('data', 'model') ``DeviceMesh`` over the running (fake)
+    group of one rank."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cpu", torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))
+
+
+FAKE_CUDA_LAYERS = 4  # phase 6's step cut for the FakeTensor count (43 s at 28)
+
+
+def phase6_count(where: str) -> dict:
+    """Phase 14(a): phase 6's step (qwen2-1.5b FULL, use_flash, seq 4096,
+    batch 2) on a (1, 1) mesh of a fake group, counted on tensors without
+    data.  ``where`` "meta": the dry run's own row (``lower_cell``),
+    {flops, kernels, peak_bytes, s, row}.  "fake_cuda": the step cut to
+    ``FAKE_CUDA_LAYERS`` layers, counted by ``dryrun.count_program`` under
+    the cell's rules on ``FakeTensor``s on ``cuda`` (a PyTorch built with
+    CUDA: autograd asks the card for its stream) and on ``meta``, the dry
+    run's stand-in for the card's program: {"fake_cuda": {flops, kernels,
+    s}, "meta": {...}}."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import op_cost
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.sharding import use_mesh
+
+    with registered_shape(phase6_shape()) as shape, op_cost.fake_group(1):
+        mesh = one_rank_mesh()
+        t0 = time.perf_counter()
+        if where == "meta":
+            row = dryrun.lower_cell("qwen2-1.5b", shape.name, mesh,
+                                    overrides={"use_flash": True})
+            return {"flops": row["flops_per_device"], "kernels": row["kernels"],
+                    "peak_bytes": row["peak_bytes"], "row": row,
+                    "s": time.perf_counter() - t0}
+        assert where == "fake_cuda", where
+        cfg = cut_depth(get_config("qwen2-1.5b").replace(use_flash=True),
+                        FAKE_CUDA_LAYERS)
+        out = {}
+        with use_mesh(mesh, dryrun.cell_rules(cfg, shape, mesh)):
+            for name, dev in (("fake_cuda", "cuda"), ("meta", "meta")):
+                t0 = time.perf_counter()
+                with (FakeTensorMode(allow_non_fake_inputs=True)
+                      if name == "fake_cuda" else contextlib.nullcontext()):
+                    cost = dryrun.count_program(cfg, shape, torch.device(dev))
+                out[name] = {"flops": cost["flops"], "kernels": cost["kernels"],
+                             "s": time.perf_counter() - t0}
+    return out
+
+
+def start_counts(tmp: Path) -> dict:
+    """Phase 14's host-side counts, each in a process of its own, started
+    together: (b) ``python -m repro_torch.launch.dryrun`` on each of
+    ``DRYRUN_CELLS`` at the (16, 16) production mesh, and (a)'s two counts
+    of phase 6's step (``phase6_count``).  {name: (process, log path)}."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    cmds = {shape: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", "qwen2-1.5b", "--shape", shape, "--mesh",
+                    "single", "--out", str(tmp / shape)]
+            for shape in DRYRUN_CELLS}
+    for where in ("meta", "fake_cuda"):
+        cmds[where] = [sys.executable, "-c",
+                       "import json, chip_smoke; print(json.dumps("
+                       f"chip_smoke.phase6_count({where!r})))"]
+    out = {}
+    for name, cmd in cmds.items():
+        log = tmp / f"{name}.log"
+        with open(log, "w") as f:
+            out[name] = (subprocess.Popen(cmd, cwd=REPO, env=env, stdout=f,
+                                          stderr=subprocess.STDOUT), log)
+    return out
+
+
+def finish_counts(procs: dict, timeout: float) -> dict:
+    """Wait for ``start_counts``' processes; {name: its log's text}.
+    Raises, with the log's tail, if one fails or outlasts ``timeout``
+    seconds; every process is stopped either way."""
+    deadline = time.perf_counter() + timeout
+    try:
+        out = {}
+        for name, (p, log) in procs.items():
+            rc = p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+            text = log.read_text()
+            assert rc == 0, f"phase 14 count {name} exited {rc}:\n{text[-3000:]}"
+            out[name] = text
+        return out
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase6_real_step(card: str, wait) -> dict:
+    """Phase 14(a): phase 6's step on the card under the same (1, 1) mesh
+    of a fake group (one rank: no collective has anything to move): one
+    step under ``op_cost.OpCounter`` on real CUDA tensors (its FLOPs, its
+    flash launches by the wrapper's count and the counter's, the
+    allocator's peak over it), then ``wait()`` (the phase's count
+    processes end, so the timed steps have the host to themselves: the
+    step is partly host-bound), then 3 timed steps (host clock around
+    each, synchronised)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import op_cost
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, shard_state)
+
+    cfg = get_config("qwen2-1.5b").replace(use_flash=True)
+    opt = dryrun._opt_cfg(cfg)
+    with registered_shape(phase6_shape()) as shape, op_cost.fake_group(1):
+        mesh = one_rank_mesh()
+        with use_mesh(mesh, dryrun.cell_rules(cfg, shape, mesh)):
+            state = shard_state(init_train_state(
+                torch.Generator("cuda").manual_seed(0), cfg, opt,
+                device="cuda"))
+            step = make_train_step(cfg, opt, constant(1e-4))
+            batch = {k: torch.zeros((shape.global_batch, shape.seq_len),
+                                    dtype=torch.int32, device="cuda")
+                     for k in ("tokens", "labels")}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            with op_cost.OpCounter() as c:
+                state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = fa.launches
+            assert np.isfinite(float(metrics["loss"])), metrics["loss"]
+            wait()
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flops": c.flops, "kernels": dict(c.kernels), "launches": launches,
+            "peak_bytes": peak, "ms": ms}
+
+
+def remat_mesh_probe(card: str) -> dict:
+    """Phase 14(c): arctic smoke (float32, MoE, ``remat="full"``) takes one
+    sharded step on a 1-rank NCCL ('data', 'model') mesh; every call of
+    the MoE balance terms (``moe._aux_losses``, which read the ambient
+    mesh through ``batch_sum``) records its thread and the ambient mesh and
+    rules.  The forward's calls run on this thread; the recomputation's
+    run in the backward pass, on autograd's device thread, and must see
+    the forward's mesh and rules (``transformer._remat`` installs them
+    there).  Returns the calls on each thread."""
+    import threading
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import moe
+    from repro_torch.optim.adamw import AdamWCfg
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel import sharding
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, shard_state)
+
+    cfg = get_config("arctic-480b", smoke=True).replace(
+        remat="full", dtype="float32", param_dtype="float32")
+    opt = AdamWCfg()
+    seen = []
+    real = moe._aux_losses
+
+    def probe(*args, **kwargs):
+        seen.append((threading.get_ident(), sharding.current_mesh(),
+                     sharding.current_rules()))
+        return real(*args, **kwargs)
+
+    g = torch.Generator("cuda").manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab_size, (8, 32), generator=g,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda",
+                         init_method=f"file://{tmp}/store")
+        try:
+            moe._aux_losses = probe
+            with sharding.use_mesh(mesh):
+                state = shard_state(init_train_state(
+                    torch.Generator("cuda").manual_seed(0), cfg, opt,
+                    device="cuda"))
+                state, metrics = make_train_step(cfg, opt, constant(1e-3))(
+                    state, batch)
+                torch.cuda.synchronize()
+        finally:
+            moe._aux_losses = real
+            dist.destroy_process_group()
+    me = threading.get_ident()
+    forward = [s for s in seen if s[0] == me]
+    again = [s for s in seen if s[0] != me]
+    assert len(forward) == cfg.n_layers, (len(forward), cfg.n_layers)
+    assert again, "no recomputation ran off this thread"
+    # the step's rules: use_mesh's, with its "act_batch" entry (axis_rules)
+    rules = forward[0][2]
+    wrong = [s for s in seen if s[1] is not mesh or s[2] is not rules]
+    assert not wrong, f"{len(wrong)} of {len(seen)} calls saw another mesh"
+    print(f"phase 14(c) remat on autograd's device thread, arctic smoke f32 "
+          f"remat full, 1-rank NCCL mesh, on {card}: {len(forward)} forward "
+          f"calls of the balance terms on this thread, {len(again)} "
+          f"recomputed on {len({s[0] for s in again})} other thread(s), "
+          f"every call under the forward's mesh and rules; loss "
+          f"{float(metrics['loss']):.6f}")
+    return {"forward": len(forward), "recomputed": len(again)}
+
+
+def dryrun_phase(card: str) -> None:
+    """Phase 14: (b)'s three dry-run cells and (a)'s two counts start in
+    processes of their own; meanwhile (c) and (a)'s counted real step run
+    here, and (a)'s timed steps once the processes have ended.
+    (a) phase 6's step: the dry run's count on ``meta`` and the count of
+    the real step are equal in FLOPs (relative 1e-9) and flash launches
+    (56 a step, phase 6's), and at ``FAKE_CUDA_LAYERS`` layers the
+    ``meta`` count equals the count on ``FakeTensor``s on ``cuda``;
+    the counted peak, the allocator's peak and ``memory_model.estimate``
+    side by side; the measured step time beside ``roofline_terms``'
+    ``step_time_lower_bound_s`` on the data-sheet H100.  (b) qwen2-1.5b
+    ``train_4k``, ``prefill_32k`` and ``decode_32k`` at (16, 16) under
+    ``fake_group(256)``: each cell's counting seconds and row."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import memory_model
+    from repro_torch.core.roofline import H100, roofline_terms
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_counts(Path(tmp))
+        done = {}
+
+        def wait():
+            if "logs" not in done:
+                done["logs"] = None  # tried: a failure is not retried
+                done["logs"] = finish_counts(procs,
+                                             timeout=PHASE14_LIMIT_S + 60)
+
+        try:
+            remat_mesh_probe(card)
+            real = phase6_real_step(card, wait)
+        finally:
+            if "logs" not in done:
+                wait()
+        logs = done["logs"]
+        rows = {shape: json.loads((Path(tmp) / shape / "results.jsonl")
+                                  .read_text().splitlines()[-1])
+                for shape in DRYRUN_CELLS}
+    meta, cut = (json.loads(logs[w].strip().splitlines()[-1])
+                 for w in ("meta", "fake_cuda"))
+    full = get_config("qwen2-1.5b").replace(use_flash=True)
+    per_step = flash_launches_per_step(full)
+    assert real["launches"] == per_step == 56, (real["launches"], per_step)
+    assert real["kernels"] == meta["kernels"] == {"flash_attention": per_step}, (
+        real["kernels"], meta["kernels"])
+    assert math.isclose(meta["flops"], real["flops"], rel_tol=1e-9), (
+        meta["flops"], real["flops"])
+    cut_launches = flash_launches_per_step(cut_depth(full, FAKE_CUDA_LAYERS))
+    assert cut["fake_cuda"]["kernels"] == cut["meta"]["kernels"] == {
+        "flash_attention": cut_launches}, cut
+    assert math.isclose(cut["fake_cuda"]["flops"], cut["meta"]["flops"],
+                        rel_tol=1e-9), cut
+    row = meta["row"]
+    with registered_shape(phase6_shape()) as shape:
+        est = memory_model.estimate(get_config("qwen2-1.5b"), shape,
+                                    {"data": 1, "model": 1})["total"]
+        bound = roofline_terms(row, H100)
+    step_ms = float(np.median(real["ms"]))
+    gib = 2 ** 30
+    print(f"phase 14(a) phase 6's step (qwen2-1.5b FULL, use_flash, seq 4096, "
+          f"batch 2, (1, 1) mesh), on {card}: FLOPs {real['flops']:.6e} (a "
+          f"real step on the card, counted) = {meta['flops']:.6e} (the dry "
+          f"run on meta, {meta['s']:.1f} s); flash launches "
+          f"{real['launches']} (wrapper) = {real['kernels']['flash_attention']} "
+          f"(counter) = {meta['kernels']['flash_attention']} (dry run) = "
+          f"{per_step} a step; at {FAKE_CUDA_LAYERS} layers FLOPs "
+          f"{cut['fake_cuda']['flops']:.6e} on FakeTensors on cuda "
+          f"({cut['fake_cuda']['s']:.1f} s) = {cut['meta']['flops']:.6e} on "
+          f"meta ({cut['meta']['s']:.1f} s), flash "
+          f"{cut['fake_cuda']['kernels']['flash_attention']} each")
+    print(f"phase 14(a) memory on {card}: counted peak "
+          f"{row['peak_bytes'] / gib:.2f} GiB (dry run), allocator peak "
+          f"{real['peak_bytes'] / gib:.2f} GiB over the counted step, "
+          f"memory_model.estimate {est / gib:.2f} GiB")
+    print(f"phase 14(a) time on {card}: step {step_ms:.1f} ms (median of "
+          f"{[round(x, 1) for x in real['ms']]}) against the derived bound "
+          f"{1e3 * bound['step_time_lower_bound_s']:.1f} ms "
+          f"({bound['dominant']}-bound on the data-sheet H100; compute "
+          f"{1e3 * bound['compute_s']:.1f} ms, memory "
+          f"{1e3 * bound['memory_s']:.1f} ms): {1e3 * bound['step_time_lower_bound_s'] / step_ms:.3f} "
+          f"of the bound reached")
+    for shape, r in rows.items():
+        t = roofline_terms(r, H100)
+        print(f"phase 14(b) derived, not measured: qwen2-1.5b x {shape} x "
+              f"{r['mesh']} counted in {r['lower_s']} s on the host of "
+              f"{card}: rank 0 FLOPs {r['flops_per_device']:.4e}, traffic "
+              f"{r['bytes_per_device'] / gib:.2f} GiB, collectives "
+              f"{r['collective_bytes_per_device'] / gib:.3f} GiB, peak "
+              f"{r['peak_bytes'] / gib:.2f} GiB, analytic "
+              f"{r['analytic_hbm_bytes'] / gib:.2f} GiB; bound "
+              f"{1e3 * t['step_time_lower_bound_s']:.2f} ms "
+              f"({t['dominant']})")
+    took = time.perf_counter() - t0
+    print(f"phase 14: {took:.1f} s (limit {PHASE14_LIMIT_S}) of the script's "
+          f"1200 s, on {card}")
 
 
 def main() -> int:
@@ -4737,6 +5103,8 @@ def main() -> int:
     sweep_derived(card)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s (limit 40) on {card}")
     phase_done("phase 13")
+    dryrun_phase(card)
+    phase_done("phase 14")
 
     t = kres["timings"]["mixed"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

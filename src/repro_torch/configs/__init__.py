@@ -17,5 +17,6 @@ from repro_torch.configs.registry import (  # noqa: F401
     ARCH_NAMES,
     all_cells,
     get_config,
+    input_specs,
     skip_reason,
 )

@@ -1,15 +1,18 @@
-"""Architecture registry: ``--arch <id>`` lookup and the skip table.
+"""Architecture registry: ``--arch <id>`` lookup, input specs, skip table.
 
-The JAX registry's ``input_specs`` (jax ``ShapeDtypeStruct``s for the
-dry-run cells) has no counterpart here: the port serves, it does not lower
-programs ahead of time.
+``input_specs`` gives a dry-run cell's inputs as (shape, dtype) pairs, the
+counterpart of the JAX registry's ``ShapeDtypeStruct``s: ``launch.dryrun``
+makes them as tensors without data.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
-from repro_torch.configs.base import ALL_SHAPES, SHAPES_BY_NAME, ModelCfg
+import torch
+
+from repro_torch.configs.base import (ALL_SHAPES, SHAPES_BY_NAME, ModelCfg,
+                                      ShapeCfg)
 
 _MODULES = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
@@ -55,3 +58,33 @@ def all_cells(include_skipped: bool = False):
                 yield (arch, shape.name)
             elif include_skipped:
                 yield (arch, shape.name, r)
+
+
+# ---------------------------------------------------------------------------
+# Input specs ((shape, dtype) pairs: never allocate)
+
+
+def input_specs(cfg: ModelCfg,
+                shape: ShapeCfg) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Model inputs for a (cfg, shape) cell as {key: (shape, dtype)}.
+
+    train    -> {tokens, labels [, feats/img_feats]}
+    prefill  -> same minus labels (counted as a forward pass)
+    decode   -> {tokens_t}; the KV cache is derived separately (it is state,
+                not input — see launch/dryrun.py).
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    act = getattr(torch, cfg.dtype)
+    if shape.kind == "decode":
+        return {"tokens_t": ((B, 1), i32)}
+    specs: Dict = {}
+    if cfg.frontend == "audio":
+        specs["feats"] = ((B, S, cfg.d_model // 2), act)
+    else:
+        specs["tokens"] = ((B, S), i32)
+    if cfg.frontend == "vision":
+        specs["img_feats"] = ((B, cfg.n_img_tokens, cfg.d_model // 2), act)
+    if shape.kind == "train":
+        specs["labels"] = ((B, S), i32)
+    return specs

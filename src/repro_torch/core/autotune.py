@@ -1,28 +1,95 @@
-"""Serving autotuner for the port: ONE (token_budget, prefill_chunk,
-page_size, kv_dtype, scheduler) for all traffic, picked against the
-analytic roofline blend (``core.roofline.mixed_bound``) on an H100.
+"""Configuration autotuner for the port, priced on an H100: the systems
+operator's role in the paper, automated.
 
-A copy of the serving half of the JAX package's ``core/autotune.py`` (the
-port imports nothing of that package): the paper's "set it once
-system-wide, every grid point stays near peak" claim at serving time.
-Instead of per-workload retuning, the serving knobs are swept against
-``mixed_bound`` over a traffic-mix grid (decode-heavy steady state, a
-chat/doc blend, a prefill burst -- each at a short-chat and a long-document
-context) and the config whose WORST grid point is the largest fraction of
-that point's achievable peak wins (max-min, not max-mean: the paper's
-figures reward flatness across the grid, not one tall corner).
+A copy of the JAX package's ``core/autotune.py`` (the port imports nothing
+of that package), both halves:
 
-The training half of the JAX module (``Candidate``, ``evaluate``,
-``select_defaults``) lowers each candidate on a device mesh and scores
-its compiled cost rows; it waits for the port's dry-run on a
-``DeviceMesh`` (ROADMAP.md, Queue 1, multi-GPU).
+- training: pick {remat policy, attention path, query chunk} per (arch ×
+  shape) by counting each candidate's rank-0 program on the production
+  mesh (``launch.dryrun.lower_cell``) and comparing roofline terms
+  (``core.roofline.roofline_terms`` on ``H100``).  The paper's conclusion
+  ("set KMP_AFFINITY/taskset/all2all-cache once, system-wide, and every
+  user's Nproc×Nthread choice stays near peak") maps to
+  ``select_defaults``: sweep ``DEFAULT_CANDIDATES`` on the mesh, score by
+  the dominant roofline term, and emit the winner.  Derived from counts,
+  not measured.
+- serving: ONE (token_budget, prefill_chunk, page_size, kv_dtype,
+  scheduler) for all traffic, picked against the analytic roofline blend
+  (``core.roofline.mixed_bound``): the paper's "set it once system-wide,
+  every grid point stays near peak" claim at serving time.  Instead of
+  per-workload retuning, the serving knobs are swept against
+  ``mixed_bound`` over a traffic-mix grid (decode-heavy steady state, a
+  chat/doc blend, a prefill burst -- each at a short-chat and a
+  long-document context) and the config whose WORST grid point is the
+  largest fraction of that point's achievable peak wins (max-min, not
+  max-mean: the paper's figures reward flatness across the grid, not one
+  tall corner).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 from repro_torch.configs import get_config
-from repro_torch.core.roofline import H100, HwSpec, mixed_bound
+from repro_torch.core.roofline import H100, HwSpec, mixed_bound, roofline_terms
+
+
+@dataclass(frozen=True)
+class Candidate:
+    name: str
+    overrides: Dict = field(default_factory=dict)  # ModelCfg.replace kwargs
+    microbatches: Optional[int] = None
+
+
+DEFAULT_CANDIDATES = (
+    Candidate("baseline", {}),
+    Candidate("remat-dots", {"remat": "dots"}),
+    Candidate("remat-none", {"remat": "none"}),
+    Candidate("flash-attn", {"use_flash": True}),
+    Candidate("q-chunk-512", {"attn_q_chunk": 512}),
+)
+
+
+def evaluate(arch: str, shape_name: str, mesh, candidates=DEFAULT_CANDIDATES,
+             hw: HwSpec = H100, hbm_limit: float = 80 * 2**30) -> List[Dict]:
+    """Count every candidate's rank-0 program of the card on ``mesh``
+    (``launch.dryrun.lower_cell``); return scored rows, ranked by
+    step-time bound."""
+    from repro_torch.launch.dryrun import lower_cell
+
+    rows = []
+    for cand in candidates:
+        try:
+            res = lower_cell(arch, shape_name, mesh, overrides=cand.overrides)
+        except Exception as e:  # servelint: ignore[broad-except] — a sweep candidate may be invalid for this arch in arbitrary ways; the error is recorded in the row, never swallowed
+            rows.append({"candidate": cand.name, "error": repr(e)[:200]})
+            continue
+        terms = roofline_terms(res, hw)
+        rows.append({
+            "candidate": cand.name,
+            "fits_hbm": res["analytic_hbm_bytes"] <= hbm_limit * 0.9,
+            "step_bound_s": terms["step_time_lower_bound_s"],
+            "dominant": terms["dominant"],
+            "roofline_fraction": terms["roofline_fraction"],
+            **{k: terms[k] for k in ("compute_s", "memory_s", "collective_s")},
+        })
+    ok = [r for r in rows if r.get("fits_hbm")]
+    # Candidate name is an explicit tie-break: float-equal step bounds (e.g.
+    # two remat modes that count the same program) would otherwise rank in
+    # insertion order.
+    ranked = sorted(ok or [r for r in rows if "error" not in r],
+                    key=lambda r: (r["step_bound_s"], r["candidate"]))
+    for i, r in enumerate(ranked):
+        r["rank"] = i
+    return rows
+
+
+def select_defaults(arch: str, shape_name: str, mesh, **kw) -> Dict:
+    rows = evaluate(arch, shape_name, mesh, **kw)
+    best = min((r for r in rows if "error" not in r),
+               key=lambda r: (not r.get("fits_hbm", False), r["step_bound_s"],
+                              r["candidate"]))
+    return {"best": best, "table": rows}
 
 
 # Analytic scheduler model for the two policy-sensitive traffic points the

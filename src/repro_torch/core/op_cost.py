@@ -39,15 +39,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, Iterator, Tuple
+import weakref
+from typing import Callable, Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes,
                                           _get_current_dispatch_mode_stack)
-from torch.utils._pytree import tree_leaves
 
 # collective op -> (JAX's type, where its result is: an argument index, or
 # None for the op's return value)
@@ -159,8 +158,38 @@ def kernel_launched(name: str, *args, **kwargs) -> None:
         c.kernels[name] = c.kernels.get(name, 0) + 1
 
 
-def _tensors(obj) -> Iterator[torch.Tensor]:
-    return (t for t in tree_leaves(obj) if isinstance(t, torch.Tensor))
+def counted_only(t: torch.Tensor) -> bool:
+    """True where ``t``, a kernel wrapper's argument, belongs to a program
+    that is counted and never run: a tensor on ``meta`` (shapes without
+    data, the device ``launch.dryrun`` counts the card's program on) or a
+    ``FakeTensor`` on ``cuda``.  The wrapper then allocates its output,
+    reports the launch with ``kernel_launched`` and returns, touching no
+    address; its ``launches`` count stays as it was, since nothing
+    launched.  A real CUDA tensor still launches the kernel and a CPU
+    tensor, fake or real, still takes the plain version."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    dev = t.device.type
+    return dev == "meta" or (dev == "cuda" and isinstance(t, FakeTensor))
+
+
+def _tensors(obj) -> List[torch.Tensor]:
+    """The tensors in an op's arguments or result: nested tuples, lists and
+    dicts walked by hand (``pytree`` costs several times more per op, and
+    a full-size program dispatches hundreds of thousands)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    out = []
+    stack = [obj]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+    return out
 
 
 def _nbytes(obj) -> float:
@@ -181,24 +210,37 @@ class OpCounter(TorchDispatchMode):
         self.collective_by_type: Dict[str, float] = {}
         self.kernels: Dict[str, int] = {}
         self.peak_bytes = 0.0
-        self._live: Dict[int, Tuple[StorageWeakRef, int]] = {}
+        # storage -> a weak reference whose callback takes the storage's
+        # bytes off ``_held`` when it dies: the live bytes are known at
+        # every op without a scan
+        self._live: Dict[int, weakref.ref] = {}
+        self._held = 0
 
     def _track(self, tensors) -> None:
+        """Adds the storages of ``tensors`` not seen yet and raises the
+        peak to the bytes of the live storages."""
         for t in tensors:
             st = t.untyped_storage()
             key = st._cdata
-            if key not in self._live:
-                self._live[key] = (StorageWeakRef(st), st.nbytes())
-        for key in [k for k, (ref, _) in self._live.items() if ref.expired()]:
-            del self._live[key]
-        self.peak_bytes = max(self.peak_bytes, float(
-            sum(n for _, n in self._live.values())))
+            if key in self._live:
+                continue
+            nbytes = st.nbytes()
+            self._live[key] = weakref.ref(st, self._freed(key, nbytes))
+            self._held += nbytes
+        if self._held > self.peak_bytes:
+            self.peak_bytes = float(self._held)
+
+    def _freed(self, key: int, nbytes: int):
+        def drop(_ref):
+            self._live.pop(key, None)
+            self._held -= nbytes
+        return drop
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func._schema.name
-        self._track(list(_tensors((args, kwargs))) + list(_tensors(out)))
+        self._track(_tensors((args, kwargs, out)))
         coll = COLLECTIVES.get(name)
         if coll is not None:
             kind, where = coll
@@ -217,21 +259,50 @@ class OpCounter(TorchDispatchMode):
         self.traffic_bytes += _nbytes(out)
         return out
 
-    def analyze(self) -> Dict[str, float]:
-        """JAX's ``hlo_cost.analyze`` keys, and ``peak_bytes``."""
+    def analyze(self) -> Dict[str, object]:
+        """JAX's ``hlo_cost.analyze`` keys, ``peak_bytes`` and ``kernels``
+        (the hand-written kernels' launches by name)."""
         return {"flops": self.flops,
                 "collective_bytes": self.collective_bytes,
                 "traffic_bytes": self.traffic_bytes,
                 **{f"coll_{k}": v for k, v in self.collective_by_type.items()},
-                "peak_bytes": self.peak_bytes}
+                "peak_bytes": self.peak_bytes,
+                "kernels": dict(self.kernels)}
 
 
-def count(fn: Callable, *args, **kwargs) -> Tuple[object, Dict[str, float]]:
+def count(fn: Callable, *args, **kwargs) -> Tuple[object, Dict[str, object]]:
     """Run ``fn(*args, **kwargs)`` under an ``OpCounter``; returns (its
     result, the counter's ``analyze()``)."""
     with OpCounter() as c:
         out = fn(*args, **kwargs)
     return out, c.analyze()
+
+
+COUNT_DEVICES = ("cuda", "cpu")
+
+
+@contextlib.contextmanager
+def counting(device: str):
+    """The tensors a count of ``device``'s program runs on, without data:
+    yields the device to make them on.  "cuda", the card's program:
+    ``meta`` (shapes without data), where the kernel wrappers report
+    their registered cost instead of launching (``counted_only``); the
+    port's code branches on the device only in those wrappers, and
+    autograd cannot run on ``FakeTensor``s on ``cuda`` in a PyTorch built
+    without CUDA, so ``meta`` is the card's program on any machine.
+    "cpu", the CPU's: ``FakeTensor``s on ``cpu``, the wrappers' plain
+    versions counted op by op."""
+    if device == "cuda":
+        yield torch.device("meta")
+        return
+    if device != "cpu":
+        raise ValueError(f"device must be one of {COUNT_DEVICES}, got "
+                         f"{device!r}")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    # real constants a program adds in (0-d zeros) become fake ones
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        yield torch.device("cpu")
 
 
 @contextlib.contextmanager

@@ -14,8 +14,8 @@ autotuner (``core/autotune.py``) and the serving sweep
 (``benchmarks/serve_sweep.py``) score against.  ``roofline_terms`` and
 ``format_row`` take a dry-run row (``flops_per_device``,
 ``bytes_per_device``, ``collective_bytes_per_device``, ``n_devices``,
-``arch``, ``shape``, ``mesh``); the port has no producer of such rows yet
-(ROADMAP.md, Queue 1, multi-GPU).
+``arch``, ``shape``, ``mesh``), as ``launch/dryrun.lower_cell`` counts
+them; ``launch/report.py`` and the training autotuner read them.
 """
 from __future__ import annotations
 

@@ -156,13 +156,12 @@ def lower_cell(cell: SweepCell, mesh=None, device: str = "cuda") -> Dict:
     (JAX's keys: per-device FLOPs, traffic bytes, collective bytes and
     peak bytes, the model's FLOPs and the device count).
 
-    The count runs on fake tensors on ``device`` (``cuda``: the card's
-    program; ``cpu``: the CPU's, whose passes cast their inputs to float32)
-    and needs neither a card nor data.  Without ``mesh`` it runs under a
-    fake process group of nproc * nthread ranks (``op_cost.fake_group``);
-    with one, under the group that mesh lives in."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
+    The count runs on tensors without data (``op_cost.counting``:
+    ``cuda``, the card's program, on ``meta``; ``cpu``, the CPU's, whose
+    passes cast their inputs to float32, on ``FakeTensor``s) and needs
+    neither a card nor data.  Without ``mesh`` it runs under a fake
+    process group of nproc * nthread ranks (``op_cost.fake_group``); with
+    one, under the group that mesh lives in."""
     if mesh is None:
         with op_cost.fake_group(cell.nproc * cell.nthread):
             return lower_cell(cell, _mesh_for(cell), device)
@@ -170,9 +169,9 @@ def lower_cell(cell: SweepCell, mesh=None, device: str = "cuda") -> Dict:
     shape = (cell.nproc, cell.n, cell.n)
     a_shape, b_shape, _ = (local_shape(spec, shape, mesh)
                            for spec in _shardings(cell))
-    with FakeTensorMode():
-        a = torch.empty(a_shape, dtype=dt, device=device)
-        b = torch.empty(b_shape, dtype=dt, device=device)
+    with op_cost.counting(device) as dev:
+        a = torch.empty(a_shape, dtype=dt, device=dev)
+        b = torch.empty(b_shape, dtype=dt, device=dev)
         _, cost = op_cost.count(rank_program(cell, mesh), a, b)
     N = cell.n
     return {

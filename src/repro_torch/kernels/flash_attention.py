@@ -13,6 +13,10 @@ multiple of 8 up to 256 (gemma3-4b's global layers run it at 256).
 ``launches`` counts kernel launches (the plain version does not count), and
 ``launches_by_variant`` splits them by variant, so a run can show that its
 attention went through the kernel it expected.
+
+A program counted and never run (tensors on ``meta``, or ``FakeTensor``s
+on ``cuda``: ``op_cost.counted_only``) gets an empty output and its
+registered cost, and launches nothing.
 """
 from __future__ import annotations
 
@@ -140,6 +144,9 @@ def flash_attention(q, k, v, *, bq: int = 128, bk: int = 128,
     Returns (BH, S, hd) in q's dtype."""
     global launches
     _check(q, k, v, bq, bk, window)
+    if op_cost.counted_only(q):
+        op_cost.kernel_launched("flash_attention", q, k, v, window=window)
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window)
     if q.device.type != "cuda":

@@ -27,6 +27,10 @@ the row strides, the slice start and the pointers are 16-byte aligned, and
 otherwise loads through registers ("fma_scalar", "wgmma_staged").  ``launches`` counts kernel launches (one per call
 under ``vmem``, one per K slice under ``hbm``; the plain version does not
 count) and ``launches_by_route`` splits them by route.
+
+A program counted and never run (tensors on ``meta``, or ``FakeTensor``s
+on ``cuda``: ``op_cost.counted_only``) gets an empty output and its
+registered cost, and launches nothing.
 """
 from __future__ import annotations
 
@@ -163,6 +167,11 @@ def matmul(a, b, *, block=(256, 256, 256), accum: str = "vmem",
     global launches
     _check(a, b, block, accum, out_dtype)
     out_dtype = out_dtype or a.dtype
+    if op_cost.counted_only(a):
+        op_cost.kernel_launched("matmul", a, b, block=block, accum=accum,
+                                out_dtype=out_dtype)
+        return torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype,
+                           device=a.device)
     if a.device.type == "cpu":
         return matmul_ref(a, b, out_dtype)
     if a.device.type != "cuda":

@@ -15,6 +15,10 @@ q over bfloat16 or int8 pools at head_dim 64 or 128, "simt" (float32 FMA,
 the parity route) otherwise.  ``launches`` counts kernel launches (the
 plain version does not count), ``launches_by_variant`` splits them by
 variant, so a run can show that its decode ticks went through the kernel.
+
+A program counted and never run (tensors on ``meta``, or ``FakeTensor``s
+on ``cuda``: ``op_cost.counted_only``) gets an empty output and its
+registered cost, and launches nothing.
 """
 from __future__ import annotations
 
@@ -157,7 +161,10 @@ def cost(q, kp, vp, ptab, lens, ks=None, vs=None) -> tuple:
     pages and scale rows the live lens reach, the live slots' q rows, the
     used block-table entries and every slot's lens read once, the whole
     output written once; FLOPs 4 * sum(lens) * G * kvH * hd.  Reads
-    ``lens`` and ``ptab`` on the host."""
+    ``lens`` and ``ptab`` on the host (``cost_without_data`` where they
+    have none)."""
+    if op_cost.counted_only(lens):
+        return _rpf.cost_without_data(q, kp, ks, ptab, with_slot=False)
     B, kvH, G, hd = q.shape
     lens_c = lens.cpu().numpy()
     kv_bytes, entries = _rpf.kv_reached(kp, ks, ptab, {
@@ -195,6 +202,10 @@ def paged_flash_decode(q, kp, vp, ptab, lens, ks=None, vs=None):
     follow from shapes alone."""
     global launches
     _check(q, kp, vp, ptab, lens, ks, vs)
+    if op_cost.counted_only(q):
+        op_cost.kernel_launched("paged_flash_decode", q, kp, vp, ptab, lens,
+                                ks, vs)
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return paged_flash_decode_ref(q, kp, vp, ptab, lens, ks, vs)
     if q.device.type != "cuda":

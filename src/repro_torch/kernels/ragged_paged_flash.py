@@ -13,6 +13,10 @@ float32 q is the parity route, where bf16 products would change the
 result.  One call runs three kernels (plan, attention, merge) and counts
 as one launch: ``launches`` counts calls that launched (the plain version
 does not count), ``launches_by_variant`` splits them by variant.
+
+A program counted and never run (tensors on ``meta``, or ``FakeTensor``s
+on ``cuda``: ``op_cost.counted_only``) gets an empty output and its
+registered cost, and launches nothing.
 """
 from __future__ import annotations
 
@@ -158,13 +162,37 @@ def kv_reached(kp, ks, ptab, row_lens) -> tuple:
     return 2 * len(pages) * page_bytes, entries
 
 
+def cost_without_data(q, kp, ks, ptab, *, with_slot: bool) -> tuple:
+    """(FLOPs, bytes) of a call whose block table and lengths hold no data
+    (a program counted and never run, ``op_cost.counted_only``): every one
+    of q's rows live at its full table of pps * page entries, over as
+    many distinct pool pages as the pool and the table allow -- the most
+    the shapes allow, where a call with data counts what its lengths
+    reach.  ``with_slot``: the rows carry a slot index (the ragged
+    kernel), read for each."""
+    n, kvH, G, hd = q.shape
+    B, pps = ptab.shape
+    page = kp.shape[1]
+    page_bytes = page * kp.shape[2] * kp.shape[3] * kp.element_size()
+    if ks is not None:
+        page_bytes += page * kp.shape[2] * 4
+    kv_bytes = 2 * min(kp.shape[0], B * pps) * page_bytes
+    row = kvH * G * hd * q.element_size()
+    nbytes = (kv_bytes + 2 * n * row + n * 4 + with_slot * n * 4
+              + B * pps * 4)
+    return 4.0 * n * pps * page * G * kvH * hd, nbytes
+
+
 def cost(q, kp, vp, ptab, slot, lens, ks=None, vs=None) -> tuple:
     """(FLOPs, bytes) of one call, its roofline bound's.  Bytes: each input
     the result depends on read once (the KV pages the live tokens, lens >
     0, reach, their scale rows, those tokens' q rows, ``lens`` for every
     row and ``slot`` for the live ones, the block-table entries they use)
     and the whole output written once.  FLOPs 4 * sum(lens) * G * kvH *
-    hd.  Reads ``lens``, ``slot`` and ``ptab`` on the host."""
+    hd.  Reads ``lens``, ``slot`` and ``ptab`` on the host
+    (``cost_without_data`` where they have none)."""
+    if op_cost.counted_only(lens):
+        return cost_without_data(q, kp, ks, ptab, with_slot=True)
     T, kvH, G, hd = q.shape
     lens_c, slot_c = lens.cpu().numpy(), slot.cpu().numpy()
     live = lens_c > 0
@@ -207,6 +235,10 @@ def ragged_paged_flash(q, kp, vp, ptab, slot, lens, ks=None, vs=None):
     the grid and the scratch sizes follow from shapes alone."""
     global launches
     _check(q, kp, vp, ptab, slot, lens, ks, vs)
+    if op_cost.counted_only(q):
+        op_cost.kernel_launched("ragged_paged_flash", q, kp, vp, ptab, slot,
+                                lens, ks, vs)
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return ragged_paged_flash_ref(q, kp, vp, ptab, slot, lens, ks, vs)
     if q.device.type != "cuda":

@@ -13,6 +13,10 @@ loads reading the row twice where it is too wide for the register cache
 ("reread"), or scalar loads where rows are not 16-byte aligned
 ("scalar").  The TPU kernel's ``block_rows`` only tiles its grid (rows are
 padded to it), which changes no result.
+
+A program counted and never run (tensors on ``meta``, or ``FakeTensor``s
+on ``cuda``: ``op_cost.counted_only``) gets an empty output and its
+registered cost, and launches nothing.
 """
 from __future__ import annotations
 
@@ -110,6 +114,9 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     and dtype."""
     global launches
     _check(x, scale)
+    if op_cost.counted_only(x):
+        op_cost.kernel_launched("rmsnorm", x, scale, eps=eps)
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
     if x.device.type != "cuda":

@@ -36,6 +36,7 @@ from repro_torch.models.layers import mamba, moe, xlstm
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.mlp import mlp_fwd
 from repro_torch.models.layers.norms import rmsnorm
+from repro_torch.parallel import sharding
 
 # per-slot pool leaves shared by every slot: survive slot resets
 POOL_LEAVES = ("kp", "vp", "ks", "vs")
@@ -264,14 +265,31 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat(fn, mode: str):
     """``jax.checkpoint`` as ``torch.utils.checkpoint``: "none" is the
     identity, "full" saves nothing inside ``fn`` (its inputs only) and
-    recomputes it in the backward pass, "dots" saves matmul outputs."""
+    recomputes it in the backward pass, "dots" saves matmul outputs.
+
+    Each call takes a snapshot of the ambient mesh and rules
+    (``sharding.ambient``) and installs it around every run of ``fn``:
+    the forward and the recomputation, which on a card runs on autograd's
+    device thread, where the thread-local ambient stack is empty.  A
+    nested remat'd call inside ``fn`` takes its snapshot from the one
+    installed, so it sees the same."""
     if mode == "none":
         return fn
     kw = {}
     if mode == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+    def call(*args):
+        snapshot = sharding.ambient()
+
+        def run(*a):
+            with sharding.installed(snapshot):
+                return fn(*a)
+
+        return ckpt.checkpoint(run, *args, use_reentrant=False, **kw)
+
+    return call
 
 
 def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,

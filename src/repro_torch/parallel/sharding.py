@@ -56,10 +56,13 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 # ---------------------------------------------------------------------------
 # Mesh reading: a DeviceMesh or a stand-in with ``axis_names`` and ``shape``
@@ -128,7 +131,16 @@ class MeshView:
         return self._coord[axis]
 
 
-_groups: Dict[Tuple[int, Tuple[str, ...]], Any] = {}
+_groups: Dict[Tuple[int, Tuple[str, ...]], Tuple[Any, Any]] = {}
+
+
+def rank_grid(mesh) -> np.ndarray:
+    """The mesh's global ranks as a numpy array of its shape, read on the
+    host with every dispatch mode set aside: under a ``FakeTensorMode`` or
+    an ``OpCounter`` the mesh's own rank tensor is bookkeeping, not part
+    of the program."""
+    with _disable_current_modes():
+        return mesh.mesh.cpu().numpy()
 
 
 def axis_group(mesh, entry):
@@ -141,9 +153,9 @@ def axis_group(mesh, entry):
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     key = (id(mesh), axes)
-    if key not in _groups:
+    if key not in _groups or _groups[key][0]() is not mesh:
         names = axis_names(mesh)
-        ranks = mesh.mesh.permute(
+        ranks = rank_grid(mesh).transpose(
             [names.index(a) for a in names if a not in axes]
             + [names.index(a) for a in axes])
         ranks = ranks.reshape(-1, axes_size(mesh, axes))
@@ -151,8 +163,10 @@ def axis_group(mesh, entry):
         for row in ranks.tolist():  # every rank builds every group
             g = dist.new_group(row)
             if me in row:
-                _groups[key] = g
-    return _groups[key]
+                # beside a weak reference to its mesh: a later mesh may
+                # reuse a dead one's id (a new fake group for each cell)
+                _groups[key] = (weakref.ref(mesh), g)
+    return _groups[key][1]
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +202,29 @@ def use_mesh(mesh, rules: Optional[Dict[str, Any]] = None):
         yield mesh
     finally:
         _stack().pop()
+
+
+def ambient() -> Tuple:
+    """A snapshot of this thread's ambient stack: every (mesh, rules)
+    that ``use_mesh`` and ``axis_rules`` installed, innermost last."""
+    return tuple(_stack())
+
+
+@contextlib.contextmanager
+def installed(snapshot: Tuple):
+    """Make ``snapshot`` (``ambient()``, possibly taken on another thread)
+    this thread's ambient stack for the code inside; the stack as it was
+    comes back on exit.  Autograd runs the backward pass, and the
+    recomputation of a remat'd function in it, on its device thread on a
+    card: ``models.transformer._remat`` installs the forward's snapshot
+    around every run of the function, so the recomputation reads the
+    forward's mesh and rules."""
+    prev = _stack()
+    _state.stack = list(snapshot)
+    try:
+        yield
+    finally:
+        _state.stack = prev
 
 
 @contextlib.contextmanager
@@ -530,7 +567,7 @@ def _members(mesh, entry) -> List[int]:
     names = axis_names(mesh)
     sizes = axis_sizes(mesh)
     axes = _axes(entry)
-    grid = mesh.mesh
+    grid = rank_grid(mesh)
     coord = {a: mesh.get_local_rank(a) for a in names}
     out = []
     for flat in range(axes_size(mesh, axes)):
@@ -727,6 +764,13 @@ class ModelPart(NamedTuple):
 _PARTS: Dict[int, ModelPart] = {}
 
 
+def _storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage, shared by its views.  Not its data
+    address: a storage without data (``meta``, a ``FakeTensor``, counted
+    by ``launch.dryrun``) has address 0."""
+    return t.untyped_storage()._cdata
+
+
 @contextlib.contextmanager
 def model_slices(tensors: Sequence[torch.Tensor], mesh=None):
     """Mark ``tensors`` (working copies) as this rank's 'model' slices of
@@ -734,7 +778,7 @@ def model_slices(tensors: Sequence[torch.Tensor], mesh=None):
     inside: ``model_part`` of any of them, or of a view of one, is then
     this rank's ``ModelPart``."""
     mesh = mesh if mesh is not None else current_mesh()
-    keys = [t.untyped_storage().data_ptr() for t in tensors]
+    keys = [_storage_key(t) for t in tensors]
     if keys:
         part = ModelPart(axis_coordinate(mesh, "model"),
                          axes_size(mesh, "model"), axis_group(mesh, "model"))
@@ -752,7 +796,7 @@ def model_part(t: torch.Tensor) -> Optional[ModelPart]:
     whole (always outside the train step: serving never splits)."""
     if not _PARTS:
         return None
-    return _PARTS.get(t.untyped_storage().data_ptr())
+    return _PARTS.get(_storage_key(t))
 
 
 class _CopyToModel(torch.autograd.Function):

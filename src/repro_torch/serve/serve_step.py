@@ -51,6 +51,17 @@ from repro_torch.parallel.sharding import (current_mesh, current_rules,
 WARMUP_CALLS = 2
 
 
+def make_serve_step(cfg: ModelCfg, *, sp_decode: bool = False):
+    """JAX's lock-step decode step: ``f(params, state, tokens_t) ->
+    (logits (B, 1, V), state)`` over ``model.decode_step`` (the state
+    updated in place); ``sp_decode`` attends through the
+    sequence-parallel decode under an ambient "act_kv_seq" rule."""
+    def serve_step(params, state, tokens_t):
+        return M.decode_step(params, cfg, state, tokens_t, sp_decode=sp_decode)
+
+    return serve_step
+
+
 def make_ragged_step(cfg: ModelCfg, *, width: int, flash_decode: bool = False):
     """Build ``f(params, state, tokens, slot, q_pos, seq_idx, valid,
     logit_idx) -> (logits, state)`` with all pack vectors (T,) and

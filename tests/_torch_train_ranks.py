@@ -376,3 +376,61 @@ def cards_train_rank(shape, layers: int, seq: int, batch: int, steps: int,
     return {"losses": losses, "ref_losses": ref_losses, "max_diff": diffs,
             "ms": ms, "ref_ms": ref_ms, "peak_gib": peak,
             "ref_peak_gib": ref_peak}
+
+
+# ---------------------------------------------------------------------------
+# the ambient mesh inside remat's recomputation
+
+
+def remat_mesh_rank(shape, cases, tree, batch):
+    """arctic smoke (float32, MoE) on a ("data", "model") mesh of
+    ``shape``: one sharded step per case (``{"cfg": {"remat": ...}}``)
+    whose backward pass runs on a ``threading.Thread`` with no mesh
+    installed, as autograd's device thread runs it on a card (the
+    step's ``torch.autograd.grad`` is swapped for one that runs on such a
+    thread and asserts it sees no mesh).  Returns per case (loss, the
+    gathered state as numpy, this rank's raw gradients as a JAX-layout
+    numpy tree: its rows' share of the global loss's, summed over the
+    ranks by the caller)."""
+    import threading
+
+    from repro_torch import bridge
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import current_mesh
+
+    mesh = make_mesh(shape, AXES, device="cpu")
+    real_grad = torch.autograd.grad
+    seen = {}
+
+    def grad_on_a_thread(outputs, inputs, *args, **kwargs):
+        box = {}
+
+        def run():
+            try:
+                box["mesh"] = current_mesh()
+                box["grads"] = real_grad(outputs, inputs, *args, **kwargs)
+            except BaseException as e:  # re-raised on the caller's thread
+                box["error"] = e
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        if "error" in box:
+            raise box["error"]
+        assert box["mesh"] is None, "the backward thread saw a mesh"
+        # copies: the step all-reduces its gradients in place
+        seen["grads"] = [g.clone() for g in box["grads"]]
+        return box["grads"]
+
+    out = []
+    torch.autograd.grad = grad_on_a_thread
+    try:
+        for case in cases:
+            case = {"arch": "arctic-480b", **case}
+            whole, cfg, loss = _step_case(case, tree, batch, mesh)
+            grads = bridge.grads_to_numpy(whole["params"], seen.pop("grads"),
+                                          cfg)
+            out.append((loss, state_numpy(whole, cfg), grads))
+    finally:
+        torch.autograd.grad = real_grad
+    return out

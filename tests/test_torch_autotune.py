@@ -63,10 +63,20 @@ def test_no_candidate_raises_like_jax(J):
     assert str(port.value) == str(ref.value)
 
 
-def test_the_training_half_waits_for_the_mesh():
-    """``Candidate``/``evaluate``/``select_defaults`` lower programs on a
-    device mesh; the docstring says they wait and where."""
-    for name in ("Candidate", "evaluate", "select_defaults"):
-        assert not hasattr(tat, name)
-        assert name in tat.__doc__
-    assert "ROADMAP.md" in tat.__doc__
+def test_training_half_candidates_match_jax(J):
+    """``Candidate`` and ``DEFAULT_CANDIDATES`` are JAX's, field for field;
+    ``evaluate`` prices on the H100 against its 80 GiB by default.
+    ``select_defaults`` against JAX's on a counted cell:
+    tests/test_torch_dryrun.py."""
+    import inspect
+
+    autotune, _ = J
+    assert [dataclasses.astuple(c) for c in tat.DEFAULT_CANDIDATES] == [
+        dataclasses.astuple(c) for c in autotune.DEFAULT_CANDIDATES]
+    assert [f.name for f in dataclasses.fields(tat.Candidate)] == [
+        f.name for f in dataclasses.fields(autotune.Candidate)]
+    params = inspect.signature(tat.evaluate).parameters
+    assert params["hw"].default is H100
+    assert params["hbm_limit"].default == 80 * 2**30
+    assert list(params)[:4] == list(
+        inspect.signature(autotune.evaluate).parameters)[:4]

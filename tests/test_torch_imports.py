@@ -38,7 +38,8 @@ def test_the_check_sees_the_whole_port():
                 "train/train_step.py", "train/elastic.py",
                 "train/checkpoint.py", "optim/compress.py",
                 "core/affinity.py", "core/op_cost.py", "core/sweep.py",
-                "launch/sweep.py", "launch/mesh.py", "benchmarks/pinning.py"):
+                "launch/sweep.py", "launch/mesh.py", "benchmarks/pinning.py",
+                "launch/dryrun.py", "launch/report.py", "core/autotune.py"):
         assert port / mod in FILES, mod
     # the detector itself: the parity tests do import the JAX package
     assert "repro.models" in set(_imported(REPO / "tests" / "test_torch_model.py"))
