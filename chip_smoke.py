@@ -4940,6 +4940,182 @@ def dryrun_phase(card: str) -> None:
           f"1200 s, on {card}")
 
 
+RES_SEQ_MESH = (1, 2)  # phase 14(d): ('data', 'model')
+
+
+def res_seq_cfg(flag: bool, dtype: str = "bfloat16"):
+    """Phase 14(d)'s config: phase 12(b)'s (qwen2-1.5b at full width cut to
+    ``TRAIN_MESH_LAYERS`` layers, float32 parameters, ``use_flash``, remat
+    "full") with ``seq_shard_residuals`` set to ``flag``."""
+    from repro_torch.configs import get_config
+
+    return cut_depth(get_config("qwen2-1.5b"), TRAIN_MESH_LAYERS).replace(
+        use_flash=True, dtype=dtype, seq_shard_residuals=flag)
+
+
+def res_seq_arm(flag: bool) -> dict:
+    """Phase 14(d) on one card: rank 0's program of the step at
+    ``RES_SEQ_MESH`` under ``op_cost.fake_group(2)`` (no collective moves
+    anything, so a gathered row holds what its memory held: the values
+    are not read), run on real CUDA tensors under ``op_cost.OpCounter``
+    (its FLOPs, collective bytes, flash launches by the wrapper's count
+    and the counter's, the allocator's peak over it, the residual
+    boundaries kept), then the dry run's count of the same program on
+    ``meta`` (``dryrun.count_program`` under the same mesh and rules)."""
+    from repro_torch.core import op_cost
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel import sharding
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, shard_state)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    cfg = res_seq_cfg(flag)
+    opt = dryrun._opt_cfg(cfg)
+    kept, real_keep = [], sharding.keep_rows
+
+    def keep(x, split):
+        kept.append(split.size)
+        return real_keep(x, split)
+
+    with registered_shape(phase6_shape()) as shape, op_cost.fake_group(2):
+        mesh = DeviceMesh("cpu", torch.arange(2).reshape(RES_SEQ_MESH),
+                          mesh_dim_names=("data", "model"))
+        with sharding.use_mesh(mesh, dryrun.cell_rules(cfg, shape, mesh)):
+            state = shard_state(init_train_state(
+                torch.Generator("cuda").manual_seed(0), cfg, opt,
+                device="cuda"))
+            step = make_train_step(cfg, opt, constant(1e-4))
+            batch = {k: torch.zeros((shape.global_batch, shape.seq_len),
+                                    dtype=torch.int32, device="cuda")
+                     for k in ("tokens", "labels")}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            sharding.keep_rows = keep
+            try:
+                with op_cost.OpCounter() as c:
+                    state, _ = step(state, batch)
+                torch.cuda.synchronize()
+            finally:
+                sharding.keep_rows = real_keep
+            step_s = time.perf_counter() - t0
+            real = {"flops": c.flops, "coll": c.collective_bytes,
+                    "by_type": dict(c.collective_by_type),
+                    "kernels": dict(c.kernels), "launches": fa.launches,
+                    "peak": torch.cuda.max_memory_allocated(), "s": step_s,
+                    "kept": len(kept)}
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            meta = dryrun.count_program(cfg, shape, torch.device("meta"))
+            meta["s"] = time.perf_counter() - t0
+    return {"real": real, "meta": meta}
+
+
+def res_seq_rank(flag: bool) -> dict:
+    """Phase 14(d) on two cards, one NCCL rank of ``RES_SEQ_MESH``: the
+    step without a mesh on the rank's own card, then the sharded step
+    from the same weights and batch (float32 activations: the sharded
+    cases' tolerances were set for float32, and a bf16 partial sum over
+    'model' rounds otherwise than the whole product); the loss at 1e-4 and
+    the gathered parameters and moments at rtol 2e-3, atol 2e-4 of the
+    reference.  Returns the losses and each kind's max |diff|."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel.sharding import make_rules, use_mesh
+    from repro_torch.train.train_step import (gather_state, init_train_state,
+                                              make_train_step, shard_state)
+
+    cfg = res_seq_cfg(flag, dtype="float32")
+    opt = dryrun._opt_cfg(cfg)
+    mesh = make_mesh(RES_SEQ_MESH, ("data", "model"), device="cuda")
+    g = torch.Generator("cuda").manual_seed(14)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 4096), generator=g,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, opt, constant(1e-3))
+
+    def fresh():
+        return init_train_state(torch.Generator("cuda").manual_seed(0), cfg,
+                                opt, device="cuda")
+
+    ref, rm = step(fresh(), batch)
+    ref = state_leaves(ref)
+    with use_mesh(mesh, make_rules(mesh, heads_tp=True)):
+        state, m = step(shard_state(fresh()), batch)
+        whole = gather_state(state)
+    assert abs(float(m["loss"]) - float(rm["loss"])) < 1e-4, (m["loss"],
+                                                              rm["loss"])
+    worst = 0.0
+    for a, b in zip(state_leaves(whole), ref, strict=True):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=2e-3,
+                                   atol=2e-4)
+        worst = max(worst, float((a.detach().float() - b.detach().float())
+                                 .abs().max()))
+    return {"loss": float(m["loss"]), "ref_loss": float(rm["loss"]),
+            "max_diff": worst}
+
+
+def res_seq_phase(card: str) -> None:
+    """Phase 14(d): the saved residuals' sequence split (JAX's
+    ``act_res_seq``) on the card, with ``seq_shard_residuals`` on and off
+    (``res_seq_arm``): each arm's FLOPs and collective bytes on the card
+    equal the ``meta`` count at rel 1e-9, its flash launches equal, the
+    boundary kept in the "on" arm only, the counted peak beside the
+    allocator's.  With two cards or more, also two NCCL ranks against the
+    step without a mesh (``res_seq_rank``)."""
+    from repro_torch.launch.ranks import run_ranks
+
+    t0 = time.perf_counter()
+    gib = 2 ** 30
+    arms = {flag: res_seq_arm(flag) for flag in (True, False)}
+    for flag, arm in arms.items():
+        real, meta = arm["real"], arm["meta"]
+        assert math.isclose(real["flops"], meta["flops"], rel_tol=1e-9), (
+            flag, real["flops"], meta["flops"])
+        assert math.isclose(real["coll"], meta["collective_bytes"],
+                            rel_tol=1e-9), (flag, real["coll"],
+                                            meta["collective_bytes"])
+        assert real["kernels"] == meta["kernels"] == {
+            "flash_attention": real["launches"]}, (real, meta["kernels"])
+        assert (real["kept"] > 0) == flag, (flag, real["kept"])
+        print(f"phase 14(d) seq_shard_residuals {'on' if flag else 'off'}, "
+              f"qwen2-1.5b at full width ({TRAIN_MESH_LAYERS} layers), bf16 "
+              f"activations over f32 params, use_flash, remat full, seq 4096, "
+              f"batch 2, rank 0 of a {RES_SEQ_MESH} ('data', 'model') mesh of "
+              f"a fake group, on {card}: FLOPs {real['flops']:.6e} (a real "
+              f"step on the card, counted) = {meta['flops']:.6e} (meta, "
+              f"{meta['s']:.1f} s); collective bytes {real['coll']:.6e} = "
+              f"{meta['collective_bytes']:.6e} ({real['by_type']}); flash "
+              f"launches {real['launches']} (wrapper) = "
+              f"{meta['kernels']['flash_attention']} (meta); boundaries kept "
+              f"{real['kept']}; peak counted {meta['peak_bytes'] / gib:.3f} "
+              f"GiB, allocator {real['peak'] / gib:.3f} GiB; step "
+              f"{real['s']:.2f} s (counted, first)")
+    on, off = arms[True], arms[False]
+    assert on["real"]["coll"] > off["real"]["coll"], "no all-gather added"
+    print(f"phase 14(d) on {card}: with the flag on, collective bytes "
+          f"{on['real']['coll'] / off['real']['coll']:.4f} of the flag off, "
+          f"counted peak {on['meta']['peak_bytes'] / off['meta']['peak_bytes']:.4f}, "
+          f"allocator peak {on['real']['peak'] / off['real']['peak']:.4f}")
+    if torch.cuda.device_count() >= 2:
+        for flag in (True, False):
+            for r, res in enumerate(run_ranks("chip_smoke:res_seq_rank", 2,
+                                              (flag,), device="cuda",
+                                              timeout=600)):
+                print(f"phase 14(d) two NCCL ranks, seq_shard_residuals "
+                      f"{'on' if flag else 'off'}, f32 activations, rank {r}, "
+                      f"on {card}: loss {res['loss']:.6f} (one card without a "
+                      f"mesh {res['ref_loss']:.6f}); state max |diff| "
+                      f"{res['max_diff']:.2e} (rtol 2e-3, atol 2e-4)")
+    print(f"phase 14(d): {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5104,6 +5280,7 @@ def main() -> int:
     print(f"phase 13: {time.perf_counter() - t13:.1f} s (limit 40) on {card}")
     phase_done("phase 13")
     dryrun_phase(card)
+    res_seq_phase(card)
     phase_done("phase 14")
 
     t = kres["timings"]["mixed"]

@@ -34,9 +34,24 @@ The counter works on real tensors (under a real process group: gloo or
 NCCL ranks) and on fake ones.  ``fake_group`` starts a fake process group
 of any size in this one process, so a 256- or 512-rank program is counted
 without a card and without data (``torch._subclasses.fake_tensor``).
+
+Time loops (JAX's walker counts a while body once and multiplies it by the
+trip count).  ``repeated(n)`` is a region whose dispatched ops count ``n``
+times, and so do the ops that the backward nodes recorded inside it
+dispatch (the engine's current node, looked up by sequence number: the
+node's backward formula and its accumulation into the next node's
+gradient); storages made inside it that are still live when the loop ends
+(saved for the backward pass, kept in a list of outputs) weigh ``n`` times
+in the peak.  ``time_loop`` runs a loop of steps that way where its
+tensors have no data (``loop_counted``): the first step, the second
+standing for every middle one, and the last, so the boundary steps keep
+their own gradients' pattern, and the outputs list holds the middle
+step's output in every middle place.  A count of the same program with
+every step dispatched stays at hand (``OpCounter(loops="plain")``).
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import math
 import weakref
@@ -153,9 +168,10 @@ def kernel_launched(name: str, *args, **kwargs) -> None:
     with _disable_current_modes():  # the cost's own reads are not counted
         flops, nbytes = cost(*args, **kwargs)
     for c in counters:
-        c.flops += float(flops)
-        c.traffic_bytes += float(nbytes)
-        c.kernels[name] = c.kernels.get(name, 0) + 1
+        k = c._now()
+        c.flops += k * float(flops)
+        c.traffic_bytes += k * float(nbytes)
+        c.kernels[name] = c.kernels.get(name, 0) + int(k)
 
 
 def counted_only(t: torch.Tensor) -> bool:
@@ -171,6 +187,103 @@ def counted_only(t: torch.Tensor) -> bool:
 
     dev = t.device.type
     return dev == "meta" or (dev == "cuda" and isinstance(t, FakeTensor))
+
+
+def without_data(t: torch.Tensor) -> bool:
+    """A tensor on ``meta`` or a ``FakeTensor`` on any device: a count of
+    a program that never runs."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return t.device.type == "meta" or isinstance(t, FakeTensor)
+
+
+def _counters() -> List["OpCounter"]:
+    return [m for m in _get_current_dispatch_mode_stack()
+            if isinstance(m, OpCounter)]
+
+
+def loop_counted(t: torch.Tensor) -> bool:
+    """True where a time loop over ``t`` counts one middle step for all of
+    them (``time_loop``): ``t`` has no data (``meta``, a ``FakeTensor``)
+    and no active counter asks for the plain count.  A tensor with data,
+    on the CPU or a card, never: its loop runs every step."""
+    return without_data(t) and not any(c.loops == "plain"
+                                        for c in _counters())
+
+
+class _Repeat:
+    """The region of ``repeated``: see there."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.counters: List["OpCounter"] = []
+        self.sets: List[set] = []
+
+    def __enter__(self):
+        self.counters = _counters()
+        self.lo = torch._C._autograd._get_sequence_nr()
+        for c in self.counters:
+            c._scale *= self.n
+            self.sets.append(c._open_set())
+        return self
+
+    def __exit__(self, *exc):
+        hi = torch._C._autograd._get_sequence_nr()
+        # nodes recorded while the backward pass recomputes a remat'd
+        # function never run: only the forward's own are scaled
+        forward = torch._C._current_autograd_node() is None
+        for c, s in zip(self.counters, self.sets):
+            c._scale /= self.n
+            c._active = [a for a in c._active if a is not s]
+            if forward and hi > self.lo:
+                c._scale_nodes(self.lo, hi, self.n)
+        return False
+
+    def settle(self) -> None:
+        """Weigh the storages made inside the region that are live now
+        ``n`` times in the peak (each of the ``n`` steps would have left
+        its own); call it where the loop ends."""
+        for c, s in zip(self.counters, self.sets):
+            c._settle(s, self.n)
+        self.counters, self.sets = [], []
+
+
+def repeated(n: int) -> _Repeat:
+    """A context under which every active ``OpCounter`` counts the FLOPs,
+    traffic bytes, collective bytes and kernel launches of what is
+    dispatched ``n`` times, and so for the backward nodes recorded inside
+    it when the backward pass runs them (their formulas and their
+    gradients' accumulation).  The handle's ``settle()``, called where the
+    loop ends, weighs the storages it made that are still live ``n`` times
+    in the peak.  Nests: the counts multiply."""
+    return _Repeat(int(n))
+
+
+def time_loop(n: int, body: Callable, carry, like: torch.Tensor):
+    """``body(t, carry) -> (carry, out)`` for t in range(n); returns (the
+    last carry, [out_0, ..., out_{n-1}]).  Where ``loop_counted(like)``
+    and n > 3 it runs steps 0, 1 and n - 1 only, step 1 under
+    ``repeated(n - 2)``, and the list holds step 1's output in every
+    middle place (detached past the first, so the gradients that reach
+    it are those of the plain loop): a count of the whole loop, forward
+    and backward, the boundary steps with their own gradients' pattern."""
+    if n <= 3 or not loop_counted(like):
+        outs = []
+        for t in range(n):
+            carry, out = body(t, carry)
+            outs.append(out)
+        return carry, outs
+    rep = repeated(n - 2)
+    try:
+        carry, first = body(0, carry)
+        with rep:
+            carry, mid = body(1, carry)
+        carry, last = body(n - 1, carry)
+    finally:
+        # also where a remat recomputation stops early, inside the last
+        # step: the middle steps' tensors are then all recomputed
+        rep.settle()
+    return carry, [first, mid] + [mid.detach()] * (n - 3) + [last]
 
 
 def _tensors(obj) -> List[torch.Tensor]:
@@ -196,14 +309,22 @@ def _nbytes(obj) -> float:
     return float(sum(t.numel() * t.element_size() for t in _tensors(obj)))
 
 
+LOOP_MODES = ("aware", "plain")
+
+
 class OpCounter(TorchDispatchMode):
     """Counts the FLOPs, collective bytes, traffic bytes and peak live bytes
     of what runs under it (``with OpCounter() as c: ...; c.analyze()``).
     Enter it inside a ``FakeTensorMode`` to count a program on fake
-    tensors."""
+    tensors.  ``loops="plain"`` makes every ``time_loop`` over tensors
+    without data dispatch each of its steps (module docstring)."""
 
-    def __init__(self):
+    def __init__(self, loops: str = "aware"):
         super().__init__()
+        if loops not in LOOP_MODES:
+            raise ValueError(f"loops must be one of {LOOP_MODES}, got "
+                             f"{loops!r}")
+        self.loops = loops
         self.flops = 0.0
         self.traffic_bytes = 0.0
         self.collective_bytes = 0.0
@@ -211,10 +332,20 @@ class OpCounter(TorchDispatchMode):
         self.kernels: Dict[str, int] = {}
         self.peak_bytes = 0.0
         # storage -> a weak reference whose callback takes the storage's
-        # bytes off ``_held`` when it dies: the live bytes are known at
-        # every op without a scan
+        # bytes (``_bytes``, weighted by ``repeated``) off ``_held`` when it
+        # dies: the live bytes are known at every op without a scan
         self._live: Dict[int, weakref.ref] = {}
-        self._held = 0
+        self._bytes: Dict[int, float] = {}
+        self._held = 0.0
+        # ``repeated``: the product of the open regions' counts; the
+        # storages each open region made (``_active``), kept with the
+        # closed ones until settled (``_unsettled``); the count of the
+        # backward nodes, piecewise constant over sequence numbers
+        self._scale = 1.0
+        self._active: List[set] = []
+        self._unsettled: List[set] = []
+        self._seq_starts: List[int] = [0]
+        self._seq_scales: List[float] = [1.0]
 
     def _track(self, tensors) -> None:
         """Adds the storages of ``tensors`` not seen yet and raises the
@@ -225,16 +356,62 @@ class OpCounter(TorchDispatchMode):
             if key in self._live:
                 continue
             nbytes = st.nbytes()
-            self._live[key] = weakref.ref(st, self._freed(key, nbytes))
+            self._live[key] = weakref.ref(st, self._freed(key))
+            self._bytes[key] = nbytes
             self._held += nbytes
+            for s in self._active:
+                s.add(key)
         if self._held > self.peak_bytes:
             self.peak_bytes = float(self._held)
 
-    def _freed(self, key: int, nbytes: int):
+    def _freed(self, key: int):
         def drop(_ref):
             self._live.pop(key, None)
-            self._held -= nbytes
+            self._held -= self._bytes.pop(key, 0)
+            for s in self._unsettled:
+                s.discard(key)
         return drop
+
+    def _open_set(self) -> set:
+        s = set()
+        self._active.append(s)
+        self._unsettled.append(s)
+        return s
+
+    def _settle(self, s: set, n: int) -> None:
+        for key in s:
+            if key in self._bytes:
+                extra = self._bytes[key] * (n - 1)
+                self._bytes[key] += extra
+                self._held += extra
+        self._unsettled = [u for u in self._unsettled if u is not s]
+        if self._held > self.peak_bytes:
+            self.peak_bytes = float(self._held)
+
+    def _scale_nodes(self, lo: int, hi: int, n: int) -> None:
+        """The backward nodes of sequence numbers [lo, hi) count n times
+        more."""
+        starts, scales = self._seq_starts, self._seq_scales
+        for b in (lo, hi):
+            i = bisect.bisect_right(starts, b) - 1
+            if starts[i] != b:
+                starts.insert(i + 1, b)
+                scales.insert(i + 1, scales[i])
+        for i in range(bisect.bisect_left(starts, lo),
+                       bisect.bisect_left(starts, hi)):
+            scales[i] *= n
+
+    def _now(self) -> float:
+        """How many times what is dispatched now counts: the open
+        ``repeated`` regions' product, times that of the backward node the
+        engine runs."""
+        if len(self._seq_starts) == 1:
+            return self._scale
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return self._scale
+        i = bisect.bisect_right(self._seq_starts, node._sequence_nr()) - 1
+        return self._scale * self._seq_scales[i]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -244,7 +421,7 @@ class OpCounter(TorchDispatchMode):
         coll = COLLECTIVES.get(name)
         if coll is not None:
             kind, where = coll
-            nbytes = _nbytes(out if where is None else args[where])
+            nbytes = self._now() * _nbytes(out if where is None else args[where])
             self.collective_bytes += nbytes
             self.traffic_bytes += nbytes
             self.collective_by_type[kind] = (
@@ -252,11 +429,12 @@ class OpCounter(TorchDispatchMode):
             return out
         if name in VIEWS or name in ALLOCATIONS or func.is_view:
             return out
+        k = self._now()
         mm = MATMULS.get(name)
         if mm is not None:
             first = out[0] if isinstance(out, (tuple, list)) else out
-            self.flops += mm(args, first)
-        self.traffic_bytes += _nbytes(out)
+            self.flops += k * mm(args, first)
+        self.traffic_bytes += k * _nbytes(out)
         return out
 
     def analyze(self) -> Dict[str, object]:
@@ -270,10 +448,11 @@ class OpCounter(TorchDispatchMode):
                 "kernels": dict(self.kernels)}
 
 
-def count(fn: Callable, *args, **kwargs) -> Tuple[object, Dict[str, object]]:
-    """Run ``fn(*args, **kwargs)`` under an ``OpCounter``; returns (its
-    result, the counter's ``analyze()``)."""
-    with OpCounter() as c:
+def count(fn: Callable, *args, loops: str = "aware",
+          **kwargs) -> Tuple[object, Dict[str, object]]:
+    """Run ``fn(*args, **kwargs)`` under an ``OpCounter(loops)``; returns
+    (its result, the counter's ``analyze()``)."""
+    with OpCounter(loops) as c:
         out = fn(*args, **kwargs)
     return out, c.analyze()
 

@@ -111,10 +111,11 @@ def cell_rules(cfg, shape: ShapeCfg, mesh, heads_tp=None):
 
 
 def lower_cell(arch: str, shape_name: str, mesh, *, overrides=None,
-               device: str = "cuda"):
+               device: str = "cuda", loops: str = "aware"):
     """Count rank 0's program of one cell on ``mesh`` (a ``DeviceMesh``
     over a running, usually fake, process group).  Returns the row (module
-    docstring).
+    docstring).  ``loops="plain"`` dispatches every step of the time loops
+    (``op_cost.OpCounter``), the count that the loop-aware one equals.
 
     ``overrides``: ModelCfg.replace kwargs, plus the special keys
       heads_tp     — shard attention heads over 'model' (rules-level)
@@ -136,7 +137,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, overrides=None,
         microbatches = 8 if param_count(cfg) > 50e9 else 1
     t0 = time.time()
     with use_mesh(mesh, rules), op_cost.counting(device) as dev:
-        cost = count_program(cfg, shape, dev, microbatches=microbatches or 1)
+        cost = count_program(cfg, shape, dev, microbatches=microbatches or 1,
+                             loops=loops)
     t_lower = time.time() - t0
     return {
         "arch": arch, "shape": shape_name,
@@ -157,15 +159,16 @@ def lower_cell(arch: str, shape_name: str, mesh, *, overrides=None,
     }
 
 
-def count_program(cfg, shape: ShapeCfg, dev, microbatches: int = 1):
+def count_program(cfg, shape: ShapeCfg, dev, microbatches: int = 1,
+                  loops: str = "aware"):
     """Rank 0's program of a (cfg, shape) cell under the ambient mesh and
-    rules, on tensors made on ``dev``, counted: the counter's
-    ``analyze()``."""
+    rules, on tensors made on ``dev``, counted (``op_cost.OpCounter(loops)``):
+    the counter's ``analyze()``."""
     if shape.kind == "train":
-        return _lower_train(cfg, shape, dev, microbatches=microbatches)
+        return _lower_train(cfg, shape, dev, microbatches, loops)
     if shape.kind == "prefill":
-        return _lower_prefill(cfg, shape, dev)
-    return _lower_decode(cfg, shape, dev)
+        return _lower_prefill(cfg, shape, dev, loops)
+    return _lower_decode(cfg, shape, dev, loops)
 
 
 # ---------------------------------------------------------------------------
@@ -212,16 +215,17 @@ def _params(cfg, dev):
                                  device="meta"), dev)
 
 
-def _lower_train(cfg, shape: ShapeCfg, dev, microbatches=1):
+def _lower_train(cfg, shape: ShapeCfg, dev, microbatches, loops):
     opt_cfg = _opt_cfg(cfg)
     state = shard_state(_remade(init_train_state(
         torch.Generator().manual_seed(0), cfg, opt_cfg, device="meta"), dev))
     step = make_train_step(cfg, opt_cfg, constant(1e-4),
                            microbatches=microbatches)
-    return op_cost.count(step, state, _inputs(cfg, shape, dev))[1]
+    return op_cost.count(step, state, _inputs(cfg, shape, dev),
+                         loops=loops)[1]
 
 
-def _lower_prefill(cfg, shape: ShapeCfg, dev):
+def _lower_prefill(cfg, shape: ShapeCfg, dev, loops):
     params = _params(cfg, dev)
     batch = _rank_rows(_inputs(cfg, shape, dev))
 
@@ -229,10 +233,10 @@ def _lower_prefill(cfg, shape: ShapeCfg, dev):
     def fwd(params, batch):
         return M.forward(params, cfg, batch)[0]
 
-    return op_cost.count(fwd, params, batch)[1]
+    return op_cost.count(fwd, params, batch, loops=loops)[1]
 
 
-def _lower_decode(cfg, shape: ShapeCfg, dev):
+def _lower_decode(cfg, shape: ShapeCfg, dev, loops):
     params = _params(cfg, dev)
     B = shape.global_batch
     enc = None
@@ -252,7 +256,8 @@ def _lower_decode(cfg, shape: ShapeCfg, dev):
     spec = sanitize_spec(logical_spec(("act_kv_batch", None), rules),
                          tok_shape, mesh)
     step = make_serve_step(cfg, sp_decode=True)
-    return op_cost.count(step, params, state, shard_tensor(tok, spec, mesh))[1]
+    return op_cost.count(step, params, state, shard_tensor(tok, spec, mesh),
+                         loops=loops)[1]
 
 
 # ---------------------------------------------------------------------------

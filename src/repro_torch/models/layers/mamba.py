@@ -9,8 +9,11 @@ the state h is float32 and each step upcasts its inputs, which stay in the
 activation dtype between steps.  JAX's nested scan (chunks of 64 steps,
 each chunk checkpointed) becomes a loop over chunks, each under
 ``torch.utils.checkpoint`` when gradients are on, so the backward pass
-keeps one state a chunk, not one a step.  Serving and the lock-step decode
-run ``mamba_decode``, the single-step cell.  ``lshard`` is dropped.
+keeps one state a chunk, not one a step.  Both loops run through
+``core.op_cost.time_loop``: on tensors without data (a count of the card's
+program) one middle chunk and one middle step stand for the others.
+Serving and the lock-step decode run ``mamba_decode``, the single-step
+cell.  ``lshard`` is dropped.
 
 Parameters keep JAX's leaf names (``in_proj, conv_w, conv_b, x_proj,
 dt_w, dt_b, A_log, ssm_D, out_proj``); the ones JAX uses in float32
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import MambaCfg
+from repro_torch.core import op_cost
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.conv import causal_depthwise_conv, conv_step
 from repro_torch.parallel.sharding import (copy_to_model, model_part,
@@ -117,14 +121,16 @@ def _scan(h, A, x_c, dt, Bm, Cm, out_dtype):
     """The recurrence over the steps of one chunk: h (B, d_in, N) float32;
     x_c, dt (B, L, d_in), Bm, Cm (B, L, N) in the activation dtype,
     upcast per step.  Returns (h, y (B, L, d_in) in ``out_dtype``)."""
-    ys = []
-    for t in range(x_c.shape[1]):
+
+    def step(t, h):
         x_t, dt_t = x_c[:, t].float(), dt[:, t].float()
         B_t, C_t = Bm[:, t].float(), Cm[:, t].float()
         dA = torch.exp(dt_t[:, :, None] * A[None])  # (B, d_in, N)
         dBx = (dt_t * x_t)[:, :, None] * B_t[:, None, :]
         h = dA * h + dBx
-        ys.append(torch.einsum("ben,bn->be", h, C_t).to(out_dtype))
+        return h, torch.einsum("ben,bn->be", h, C_t).to(out_dtype)
+
+    h, ys = op_cost.time_loop(x_c.shape[1], step, h, x_c)
     return h, torch.stack(ys, dim=1)
 
 
@@ -151,15 +157,16 @@ def mamba_fwd(params, cfg: MambaCfg, x, chunk: int = 64):
     h = torch.zeros((B, d_in, cfg.d_state), dtype=torch.float32,
                     device=x.device)
     scan = functools.partial(_scan, out_dtype=dt_)
-    ys = []
-    for c in range(0, S, L):
+
+    def chunk_step(i, h):
+        c = i * L
         xs = (x_c[:, c:c + L], dt[:, c:c + L], Bmat[:, c:c + L],
               Cmat[:, c:c + L])
         if torch.is_grad_enabled():
-            h, y = ckpt.checkpoint(scan, h, A, *xs, use_reentrant=False)
-        else:
-            h, y = scan(h, A, *xs)
-        ys.append(y)
+            return ckpt.checkpoint(scan, h, A, *xs, use_reentrant=False)
+        return scan(h, A, *xs)
+
+    h, ys = op_cost.time_loop(S // L, chunk_step, h, x_c)
     y = torch.cat(ys, dim=1)
     y = (y + (x_c * params["ssm_D"].to(dt_)).to(dt_)) * F.silu(z)
     out = y @ params["out_proj"].to(dt_)

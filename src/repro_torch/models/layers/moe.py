@@ -16,6 +16,11 @@ Two forms, as in JAX:
   capture no host read is allowed, so the step runs the dispatch form at
   capacity T (the tokens of the call): an expert receives at most one slot
   a token, so no slot can overflow and the result is the same function.
+  A count without data (``core.op_cost.without_data``: ``meta`` or fake
+  tensors) has no group sizes to read: it takes the balanced routing,
+  T k / E slots an expert, the load the balance loss aims at.  The whole
+  layer's products do not depend on the sizes; a rank's share of them
+  under the 'model' split does.
 
 The router runs in float32 (its weight stays float32 in the serving
 layout: ``FLOAT32_LEAVES``); ``top_k`` breaks ties toward the lower expert
@@ -41,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
+from repro_torch.core import op_cost
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.mlp import mlp_fwd
 from repro_torch.parallel.sharding import (batch_shards, batch_sum,
@@ -224,7 +230,11 @@ def _moe_fwd_ragged(params, cfg: MoECfg, x) -> Tuple[torch.Tensor, Dict]:
     order = torch.argsort(flat_idx, stable=True)
     inv = torch.argsort(order, stable=True)
     xs = xt[order // k]  # (T*k, D): each sorted slot's source token
-    sizes = torch.bincount(flat_idx, minlength=E).tolist()  # host read
+    if op_cost.without_data(flat_idx):  # a count: the balanced routing
+        q, r = divmod(T * k, E)
+        sizes = [q + (e < r) for e in range(E)]
+    else:
+        sizes = torch.bincount(flat_idx, minlength=E).tolist()  # host read
     mine = _experts_of(params, part)
     outs, start = [], 0
     for e, n in enumerate(sizes):

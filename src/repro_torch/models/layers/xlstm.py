@@ -10,7 +10,9 @@ serving and the lock-step decode run the single-step cells.  JAX's
 ``jax.checkpoint`` on the chunk bodies has no counterpart here: the
 stage's remat (``transformer.stage_fwd``) recomputes each block in the
 backward pass already, and a block's chunk intermediates at the training
-shape are a few MiB.  ``lshard`` (sharding only) is dropped.
+shape are a few MiB.  The loops run through ``core.op_cost.time_loop``:
+on tensors without data (a count of the card's program) one middle chunk
+or step stands for the others.  ``lshard`` (sharding only) is dropped.
 
 Parameters keep JAX's leaf names (``up_proj, conv_w, conv_b, xq, xk, xv,
 wi, wf, bi, bf, out_norm.scale, down_proj``; ``w_ifzo, r_ifzo, b_ifzo``)
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMCfg
+from repro_torch.core import op_cost
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.conv import causal_depthwise_conv, conv_step
 
@@ -190,11 +193,11 @@ def mlstm_fwd(params, cfg: XLSTMCfg, x, chunk: int = 128):
 
     qs, ks, vs = to_chunks(q), to_chunks(k), to_chunks(v)
     as_, gs = to_chunks(a[..., None])[..., 0], to_chunks(g[..., None])[..., 0]
-    C, n, m = _zero_state(B, nh, hd, x.device)
-    hs = []
-    for c in range(nc):
-        (C, n, m), h = _mlstm_chunk(C, n, m, qs[c], ks[c], vs[c], as_[c], gs[c])
-        hs.append(h)
+
+    def step(c, state):
+        return _mlstm_chunk(*state, qs[c], ks[c], vs[c], as_[c], gs[c])
+
+    _, hs = op_cost.time_loop(nc, step, _zero_state(B, nh, hd, x.device), x)
     # (nc, B, nh, L, hd) -> (B, S, nh, hd)
     h = torch.movedim(torch.stack(hs), 0, 1).transpose(2, 3).reshape(B, S, nh, hd)
     return _mlstm_out(params, h, z, x.dtype)
@@ -206,12 +209,14 @@ def mlstm_fwd_seq(params, cfg: XLSTMCfg, x):
     B, S, D = x.shape
     _, hd = _mlstm_dims(D, cfg)
     z, q, k, v, a, g = _mlstm_inputs(params, cfg, x)
-    C, n, m = _zero_state(B, cfg.num_heads, hd, x.device)
-    hs = []
-    for t in range(S):
-        C, n, m, h = _mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t], a[:, t],
-                                 g[:, t])
-        hs.append(h)
+
+    def step(t, state):
+        *state, h = _mlstm_cell(*state, q[:, t], k[:, t], v[:, t], a[:, t],
+                                g[:, t])
+        return state, h
+
+    _, hs = op_cost.time_loop(S, step, _zero_state(B, cfg.num_heads, hd,
+                                                   x.device), x)
     return _mlstm_out(params, torch.stack(hs, dim=1), z, x.dtype)
 
 
@@ -301,10 +306,12 @@ def slstm_fwd(params, cfg: XLSTMCfg, x, chunk: int = 64):
     z0 = torch.zeros((B, D), dtype=torch.float32, device=x.device)
     carry = (z0, z0, z0, torch.full((B, D), NEG, dtype=torch.float32,
                                     device=x.device))
-    hs = []
-    for t in range(S):
+
+    def step(t, carry):
         carry = _slstm_cell(r, b, carry, wx[:, t])
-        hs.append(carry[0])
+        return carry, carry[0]
+
+    _, hs = op_cost.time_loop(S, step, carry, x)
     return torch.stack(hs, dim=1).to(x.dtype)
 
 

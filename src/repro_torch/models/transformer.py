@@ -298,14 +298,34 @@ def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,
     blocks, each block remat'd again inside (JAX's nested remat: the
     backward pass recomputes each block once), over the stacked layers.
     JAX's ``_barrier`` serializes FSDP parameter gathers; on one device it
-    is the identity and has no counterpart here, nor has the ``lshard`` of
-    the saved boundaries (``seq_shard_residuals``), a no-op without a
-    mesh.  ``enc`` (the cross-attention layers' encoder states) goes into
-    each remat'd call as an argument, beside the hidden states."""
+    is the identity and has no counterpart here.  ``enc`` (the
+    cross-attention layers' encoder states) goes into each remat'd call as
+    an argument, beside the hidden states.
+
+    The saved boundaries (JAX's ``seq_shard_residuals`` and its
+    "act_res_seq" rule): under remat, with gradients on, where the ambient
+    rules split the sequence over 'model' (``sharding.res_seq_split``),
+    a block's output is kept as the rank's S/N rows (``keep_rows``) and
+    the next block gathers its input whole inside its remat'd function
+    (``gather_rows``), so what checkpointing saves at every block and
+    group boundary, and what the recomputation regathers, is the rank's
+    rows.  The stage's input is cut to the rank's rows before the first
+    group and its output gathered after the last.  Inside a block every
+    op sees whole rows.  Without gradients nothing is saved, and the
+    boundary is left whole."""
+    rows = None
+    if (cfg.remat != "none" and cfg.seq_shard_residuals and x.shape[1] > 1
+            and torch.is_grad_enabled()):
+        rows = sharding.res_seq_split(x.shape[1])
 
     def one_block(block_params, y, e, blk):
-        return block_fwd(block_params, cfg, blk, y, positions=positions,
+        if rows is not None:
+            y = sharding.gather_rows(y, rows)
+        y, a = block_fwd(block_params, cfg, blk, y, positions=positions,
                          enc=e)
+        if rows is not None:
+            y = sharding.keep_rows(y, rows)
+        return y, a
 
     def group(y, group_params, e):
         aux = dict(ZERO_AUX)
@@ -318,9 +338,13 @@ def stage_fwd(params, cfg: ModelCfg, stage: Stage, x, *, positions=None,
     group = _remat(group, cfg.remat)
     views = [_layers(b, stage.repeats) for b in params]
     aux = dict(ZERO_AUX)
+    if rows is not None:
+        x = sharding.keep_rows(x, rows)
     for r in range(stage.repeats):
         x, a = group(x, [v[r] for v in views], enc)
         aux = _add_aux(aux, a)
+    if rows is not None:
+        x = sharding.gather_rows(x, rows)
     return x, aux
 
 

@@ -43,6 +43,14 @@ ends.  Leaves replicated over 'model' then get the same gradient on every
 each splits over; ``model_split_dims`` reads from a state's specs which of
 them a mesh splits.
 
+The saved residuals' sequence split (JAX's "act_res_seq" rule, Megatron's
+sequence parallelism at the remat boundaries): ``res_seq_split`` reads
+from the ambient rules whether a sequence splits over 'model';
+``keep_rows`` keeps a replicated activation's rank rows (a copy; the
+gradient is all-gathered) and ``gather_rows`` makes the rows whole again
+(an all-gather; the gradient's rank rows pass back), so what remat saves
+between blocks is the rank's S/N rows (``models.transformer.stage_fwd``).
+
 Parts of the JAX module with no counterpart here:
 
 - ``shard_map``: the port runs one process per rank, and each rank calls
@@ -50,7 +58,8 @@ Parts of the JAX module with no counterpart here:
   ``kernels.ops.flash_attention_grouped``).
 - ``lshard``: a sharding constraint has nothing to constrain without a
   compiler that places tensors; the port's constraints are its explicit
-  collectives (``gather_heads``, ``constrain_like_params``).
+  collectives (``gather_heads``, ``constrain_like_params``,
+  ``keep_rows``/``gather_rows``).
 """
 from __future__ import annotations
 
@@ -824,3 +833,94 @@ def copy_to_model(x: torch.Tensor, part: ModelPart) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, part: ModelPart) -> torch.Tensor:
     """A split region's partial result summed over 'model' (``sum_over``)."""
     return sum_over(x, part.group)
+
+
+# ---------------------------------------------------------------------------
+# The saved residuals' sequence over 'model' ("act_res_seq")
+
+
+class RowSplit(NamedTuple):
+    """A sequence split over the "act_res_seq" axes: this rank's
+    coordinate, the axes' size N and their process group, and the order
+    that takes a gather's group order to coordinate order (None where the
+    two agree)."""
+    coord: int
+    size: int
+    group: Any
+    order: Optional[List[int]]
+
+
+def res_seq_split(seq_len: int) -> Optional[RowSplit]:
+    """The "act_res_seq" split of a sequence of ``seq_len`` positions under
+    the ambient mesh and rules; None without a mesh, where the rule names
+    no axis or axes of one rank, or where they do not divide ``seq_len``
+    (``sanitize_spec`` replicates the dim then)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    entry = sanitize_spec((_entry(current_rules().get("act_res_seq")),),
+                          (seq_len,), mesh)[0]
+    n = axes_size(mesh, entry)
+    if n == 1:
+        return None
+    group = axis_group(mesh, entry)
+    members = _members(mesh, entry)
+    order = [members.index(g) for g in dist.get_process_group_ranks(group)]
+    return RowSplit(axis_coordinate(mesh, entry), n, group,
+                    None if order == list(range(n)) else order)
+
+
+def _gather_rows(x: torch.Tensor, split: RowSplit) -> torch.Tensor:
+    """Every rank's rows (dim 1) of ``split``'s group, whole: (B, S, ...)."""
+    full = all_gather_cat(x.movedim(1, 0), split.group)
+    if split.order is not None:  # group order -> coordinate order
+        parts = full.view((split.size,) + tuple(x.movedim(1, 0).shape))
+        full = parts[torch.tensor(split.order).argsort()].reshape(full.shape)
+    return full.movedim(0, 1)
+
+
+def _rank_rows(x: torch.Tensor, split: RowSplit) -> torch.Tensor:
+    n = x.shape[1] // split.size
+    return x.narrow(1, split.coord * n, n)
+
+
+class _KeepRows(torch.autograd.Function):
+    """A (B, S, ...) activation, the same on every rank of the split ->
+    this rank's S/N rows, copied (the whole tensor is not kept alive); the
+    gradient all-gathered: each rank's rows carry the gradient of its
+    own."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return _rank_rows(x, split).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_rows(g, ctx.split), None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows all-gathered into the whole (B, S, ...); the
+    gradient, the same on every rank (what follows runs replicated or
+    joins its split regions' gradients), gives back the rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return _gather_rows(x, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rank_rows(g, ctx.split), None
+
+
+def keep_rows(x: torch.Tensor, split: RowSplit) -> torch.Tensor:
+    """This rank's rows of ``x`` (the same on every rank of ``split``)."""
+    return _KeepRows.apply(x, split)
+
+
+def gather_rows(x: torch.Tensor, split: RowSplit) -> torch.Tensor:
+    """The whole sequence from every rank's rows (``keep_rows``'
+    inverse)."""
+    return _GatherRows.apply(x, split)

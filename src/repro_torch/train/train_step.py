@@ -31,9 +31,10 @@ and the state carries those specs under "specs".  A step
    taken over the mesh.
 
 What stays whole on every 'model' rank: the norms, the k/v projections
-(and attention itself without ``heads_tp``), the router, the frontends,
-xLSTM's leaves, and the saved residuals (JAX's ``act_res_seq`` sequence
-split has no counterpart yet).
+(and attention itself without ``heads_tp``), the router, the frontends and
+xLSTM's leaves.  The saved residuals between remat'd blocks are the
+rank's rows of the sequence over 'model' (JAX's ``act_res_seq``,
+``cfg.seq_shard_residuals``; ``models.transformer.stage_fwd``).
 """
 from __future__ import annotations
 

@@ -7,6 +7,7 @@ test_torch_compress.py, test_torch_pipeline.py, and the four-card
 which must not import JAX: this module imports torch, numpy and the port
 only.  The parents compute the JAX references and pass numpy in.
 """
+import contextlib
 import dataclasses
 import time
 
@@ -122,6 +123,38 @@ def assert_working_copies(state, whole, mesh, want):
     assert split == set(want), (sorted(split), sorted(want))
 
 
+@contextlib.contextmanager
+def rows_kept():
+    """Records the size of every split the saved residuals' boundary
+    (``sharding.keep_rows``) is called with, the stage's inputs and every
+    block's output."""
+    from repro_torch.parallel import sharding
+
+    kept, real = [], sharding.keep_rows
+
+    def keep(x, split):
+        kept.append(split.size)
+        return real(x, split)
+
+    sharding.keep_rows = keep
+    try:
+        yield kept
+    finally:
+        sharding.keep_rows = real
+
+
+def assert_res_seq(kept, cfg, mesh, seq_len: int) -> None:
+    """The step kept the saved residuals as the rank's rows over 'model'
+    exactly where JAX's ``act_res_seq`` splits them: remat on, the flag
+    set, and 'model' > 1 dividing the sequence."""
+    from repro_torch.parallel.sharding import axis_sizes
+
+    n = axis_sizes(mesh)["model"]
+    want = (n > 1 and cfg.remat != "none" and cfg.seq_shard_residuals
+            and seq_len % n == 0)
+    assert bool(kept) == want and set(kept) <= {n}, (kept, want)
+
+
 def _step_case(case: dict, tree, batch, mesh):
     """One sharded step of ``case`` (arch, opt kwargs, microbatches,
     config kwargs, ``moe_impl``, ``heads_tp``; ``split``, the leaves the
@@ -143,7 +176,9 @@ def _step_case(case: dict, tree, batch, mesh):
         if "split" in case:
             assert_working_copies(state, _state(tree, cfg, opt), mesh,
                                   case["split"])
-        state, metrics = step(state, b)
+        with rows_kept() as kept:
+            state, metrics = step(state, b)
+        assert_res_seq(kept, cfg, mesh, b["tokens"].shape[1])
         whole = gather_state(state)
         assert_shards_are_slices(state, whole, mesh)
     if mesh.size() == 1:  # a mesh of one rank: the step without a mesh, bitwise
@@ -383,8 +418,9 @@ def cards_train_rank(shape, layers: int, seq: int, batch: int, steps: int,
 
 
 def remat_mesh_rank(shape, cases, tree, batch):
-    """arctic smoke (float32, MoE) on a ("data", "model") mesh of
-    ``shape``: one sharded step per case (``{"cfg": {"remat": ...}}``)
+    """arctic smoke (float32, MoE; another arch where a case names one) on
+    a ("data", "model") mesh of ``shape``: one sharded step per case
+    (``{"cfg": {"remat": ...}}``)
     whose backward pass runs on a ``threading.Thread`` with no mesh
     installed, as autograd's device thread runs it on a card (the
     step's ``torch.autograd.grad`` is swapped for one that runs on such a

@@ -479,6 +479,7 @@ def test_port_tree_is_clean():
         ("src/repro_torch/serve/engine.py", "hot-nondeterminism"),
         ("src/repro_torch/train/loop.py", "broad-except"),
         ("src/repro_torch/launch/dryrun.py", "broad-except"),
+        ("src/repro_torch/launch/hillclimb.py", "broad-except"),
         ("src/repro_torch/core/autotune.py", "broad-except")}
 
 
@@ -497,9 +498,9 @@ def test_every_suppression_names_its_rule_and_a_reason():
             if marker.search(text) and "analysis/" not in p.as_posix():
                 seen += 1
                 assert full.search(text), f"{p}:{n}: {text.strip()}"
-    assert seen == 6
+    assert seen == 7
     tolerated = [f for f in S.lint_tree() if f.suppressed]
-    assert len(tolerated) == 6 and all(f.reason for f in tolerated)
+    assert len(tolerated) == 7 and all(f.reason for f in tolerated)
 
 
 # ---------------------------------------------------------------------------
@@ -746,11 +747,11 @@ def test_cli_gate(tmp_path, capsys):
     assert main(["--fail-on-findings", "--device", "cpu",
                  "--json", str(out)]) == 0
     text = capsys.readouterr().out
-    assert "0 actionable, 6 tolerated" in text
+    assert "0 actionable, 7 tolerated" in text
     for name in PASSES:
         assert f"[{name:>9}] " in text
     dumped = json.loads(out.read_text())
-    assert len(dumped) == 6 and all(f["suppressed"] for f in dumped)
+    assert len(dumped) == 7 and all(f["suppressed"] for f in dumped)
 
 
 def test_cli_rejects_unknown_pass():

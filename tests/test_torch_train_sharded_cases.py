@@ -30,6 +30,17 @@ run a mesh; in each rank the working copy of every split leaf is its
 - (1, 4): qwen2-1.5b with ``heads_tp``, whose G = 2 query heads a KV
   group 'model' 4 does not divide: the heads stay whole, the FFN and the
   vocabulary split.
+
+The saved residuals' sequence split (JAX's ``act_res_seq``,
+``seq_shard_residuals``, on by default): every case at 'model' > 1 keeps
+the residuals between remat'd blocks as the rank's rows of the sequence,
+and the ranks assert that the boundary ran exactly where it should
+(``_torch_train_ranks.assert_res_seq``).  At (1, 2) two more cases keep
+them whole: the flag off, and a sequence of 31 positions, which 'model' 2
+does not divide.  ``test_res_seq_backward_without_a_mesh`` runs the
+(1, 2) step with its backward pass on a thread with no mesh installed, as
+tests/test_torch_remat_mesh.py does: the recomputation's all-gather of
+the rank rows reaches its group without the ambient mesh.
 """
 import pytest
 
@@ -91,6 +102,9 @@ SPLIT_CASES = {
         "arctic_dropless": {**ARCTIC, "moe_impl": "ragged"},
         "jamba": {"arch": "jamba-1.5-large-398b",
                   "split": FFN + ("tok_embed", "out_head") + EXPERTS + MAMBA},
+        "res_seq_off": {**QWEN_HEADS_TP,
+                        "cfg": {"seq_shard_residuals": False}},
+        "res_seq_undivided": {**QWEN_HEADS_TP, "seq": 31},
     },
     (2, 2): {
         "qwen_heads_tp": QWEN_HEADS_TP,
@@ -111,8 +125,10 @@ def _jax_split_case(name: str, case: dict):
         vocab = get_config(case["arch"], smoke=True).vocab_size
         batch = make_batch(vocab, seed=len(_JAX) + 11,
                            mask=case.get("mask", False))
+        if "seq" in case:
+            batch = {k: v[:, :case["seq"]] for k, v in batch.items()}
         jcase = {k: v for k, v in case.items()
-                 if k not in ("mask", "heads_tp", "split")}
+                 if k not in ("mask", "heads_tp", "split", "seq")}
         _JAX[name] = (batch,) + jax_case(jcase, batch)
     return _JAX[name]
 
@@ -136,3 +152,19 @@ def test_model_split_matches_jax(shape):
                 named, got, want, strict=True):
             assert_like_jax(loss, state, want_loss, want_state,
                             f"{name} {shape} rank {r}")
+
+
+def test_res_seq_backward_without_a_mesh():
+    """qwen2-1.5b smoke with ``heads_tp`` at (1, 2), remat "full": the
+    forward under the mesh, the backward pass on a thread that sees none
+    (``_torch_train_ranks.remat_mesh_rank``), the residuals kept as the
+    rank's rows; the loss and state against JAX's single-device step."""
+    pytest.importorskip("jax")
+    name = "qwen_heads_tp"
+    batch, tree, loss, state = _jax_split_case(name, QWEN_HEADS_TP)
+    case = {k: v for k, v in QWEN_HEADS_TP.items() if k != "split"}
+    results = run_ranks("_torch_train_ranks:remat_mesh_rank", 2,
+                        ((1, 2), [case], tree, batch), device="cpu")
+    for r, [(got_loss, got, _)] in enumerate(results):
+        assert_like_jax(got_loss, got, loss, state,
+                        f"backward without a mesh, rank {r}")
